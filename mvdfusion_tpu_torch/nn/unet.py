@@ -1,0 +1,281 @@
+"""The MVD-Fusion UNet: the SD-v1 backbone plus grafted view-aligned attention
+(torch counterpart of mvdfusion_tpu/nn/unet.py), NHWC activations.
+
+Module and parameter names follow the reference checkpoint (openaimodel's
+input_blocks / middle_block / output_blocks, ResBlock in_layers / emb_layers /
+out_layers, SpatialTransformer, and the ViewAlignedFeatureTransformer's
+aligned_attn_* names), i.e. the torch keys of convert/mapping.py's
+unet_mapping. The 32^2 and 16^2 transformer sites go through the K3 kernel
+wrapper (ops/block.py); the C=1280 sites stay plain, as in the reference.
+The up-path skip joins are concatenations: the reference's split-skip form
+computes the same function piece by piece for the TPU's layouts.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from mvdfusion_tpu_torch.nn.layers import (
+    Conv1x1,
+    Conv2d,
+    CrossAttention,
+    FeedForward,
+    GroupNorm32,
+    LayerNormFp32,
+    Linear,
+    silu,
+    timestep_embedding,
+)
+from mvdfusion_tpu_torch.ops.block import BlockWeights, should_fuse_block, transformer_block
+from mvdfusion_tpu_torch.ops.image import area_downsample, nearest_upsample2x
+
+
+class ResBlock(nn.Module):
+    """GN+SiLU -> conv3x3 -> + emb row -> GN+SiLU -> conv3x3 (+ 1x1 skip)."""
+
+    def __init__(self, cin: int, cout: int, emb_dim: int):
+        super().__init__()
+        self.in_layers = nn.ModuleList([GroupNorm32(cin, act="silu"), nn.Identity(), Conv2d(cin, cout, 3, padding=1)])
+        self.emb_layers = nn.ModuleList([nn.Identity(), Linear(emb_dim, cout)])
+        self.out_layers = nn.ModuleList(
+            [GroupNorm32(cout, act="silu"), nn.Identity(), nn.Identity(), Conv2d(cout, cout, 3, padding=1)]
+        )
+        self.skip_connection = Conv1x1(cin, cout) if cin != cout else None
+
+    def forward(self, x, emb):
+        h = self.in_layers[2](self.in_layers[0](x))
+        e = self.emb_layers[1](silu(emb))
+        h = h + e[:, None, None, :].to(h.dtype)
+        h = self.out_layers[3](self.out_layers[0](h))
+        skip = self.skip_connection(x) if self.skip_connection is not None else x
+        return skip + h
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attention, cross-attention to the context, GEGLU FF."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.ff = FeedForward(dim)
+        self.norm1 = LayerNormFp32(dim)
+        self.norm2 = LayerNormFp32(dim)
+        self.norm3 = LayerNormFp32(dim)
+
+    def forward(self, x, context):
+        """x (B, N, C); context (B, M, Cc), or (B*N, D, Cc) per pixel."""
+        x = x + self.attn1(self.norm1(x))
+        q = self.norm2(x)
+        if context.shape[0] != x.shape[0]:  # per-pixel frustum: fold N into batch
+            B, N, C = x.shape
+            x = x + self.attn2(q.reshape(B * N, 1, C), context).reshape(B, N, C)
+        else:
+            x = x + self.attn2(q, context)
+        return x + self.ff(self.norm3(x))
+
+
+def _attn2_contribution(block: BasicTransformerBlock, ctx):
+    """to_out(to_v(ctx)): attn2's exact output for a 1-key context.
+    ctx (B, Cc) -> (B, C) or (B, N, Cc) -> (B, N, C)."""
+    return block.attn2.to_out[0](block.attn2.to_v(ctx))
+
+
+def _site_weights(norm, proj_in, proj_out, block: BasicTransformerBlock) -> BlockWeights:
+    a1, ff = block.attn1, block.ff
+    mat = lambda m: m.weight.reshape(m.weight.shape[0], -1)  # Linear or 1x1 conv
+    return BlockWeights(
+        gn_w=norm.weight, gn_b=norm.bias,
+        pi_w=mat(proj_in), pi_b=proj_in.bias,
+        ln1_w=block.norm1.weight, ln1_b=block.norm1.bias,
+        qkv_w=torch.cat([a1.to_q.weight, a1.to_k.weight, a1.to_v.weight], dim=0),
+        out_w=a1.to_out[0].weight, out_b=a1.to_out[0].bias,
+        ln3_w=block.norm3.weight, ln3_b=block.norm3.bias,
+        g_w=ff.net[0].proj.weight, g_b=ff.net[0].proj.bias,
+        f_w=ff.net[2].weight, f_b=ff.net[2].bias,
+        po_w=mat(proj_out), po_b=proj_out.bias,
+    )
+
+
+class SpatialTransformer(nn.Module):
+    """GN(eps 1e-6) -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out + x."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.norm = GroupNorm32(ch, eps=1e-6)
+        self.proj_in = Conv1x1(ch, inner)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)]
+        )
+        self.proj_out = Conv1x1(inner, ch)
+
+    def forward(self, x, context):
+        B, H, W, C = x.shape
+        blk = self.transformer_blocks
+        if len(blk) == 1 and context.shape[1] == 1 and should_fuse_block(C, H * W, self.heads):
+            a2 = _attn2_contribution(blk[0], context[:, 0])
+            w = _site_weights(self.norm, self.proj_in, self.proj_out, blk[0])
+            dt = self.proj_in.weight.dtype
+            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads).reshape(B, H, W, C)
+        h = self.proj_in(self.norm(x)).reshape(B, H * W, -1)
+        for b in blk:
+            h = b(h, context)
+        return self.proj_out(h.reshape(B, H, W, -1)) + x
+
+
+class ViewAlignedFeatureTransformer(nn.Module):
+    """The grafted site (use_linear=True): each pixel cross-attends to its D
+    view-aligned frustum features."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.aligned_attn_norm = GroupNorm32(ch, eps=1e-6)
+        self.aligned_attn_proj_in = Linear(ch, inner)
+        self.aligned_attn_transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)]
+        )
+        self.aligned_attn_proj_out = Linear(inner, ch)
+
+    def forward(self, x, volume):
+        """x (B, H, W, C); volume (B, H, W, D, Cc)."""
+        B, H, W, C = x.shape
+        D, Cc = volume.shape[3], volume.shape[4]
+        blk = self.aligned_attn_transformer_blocks
+        if len(blk) == 1 and D == 1 and should_fuse_block(C, H * W, self.heads):
+            a2 = _attn2_contribution(blk[0], volume.reshape(B, H * W, Cc))
+            w = _site_weights(self.aligned_attn_norm, self.aligned_attn_proj_in, self.aligned_attn_proj_out, blk[0])
+            dt = self.aligned_attn_proj_in.weight.dtype
+            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads).reshape(B, H, W, C)
+        ctx = volume.reshape(B * H * W, D, Cc)
+        h = self.aligned_attn_proj_in(self.aligned_attn_norm(x).reshape(B, H * W, C))
+        for b in blk:
+            h = b(h, ctx)
+        return self.aligned_attn_proj_out(h).reshape(B, H, W, C) + x
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv, symmetric padding 1 (torch Conv2d semantics)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.op = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x, then a 3x3 conv."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(nearest_upsample2x(x))
+
+
+def volume_pyramid(volume: torch.Tensor, num_levels: int) -> list:
+    """Area-downsample the (B, H, W, D, C) frustum to each UNet resolution,
+    each level from the previous one."""
+    B, H, W, D, C = volume.shape
+    levels = [volume.reshape(B, H, W, D * C)]
+    for _ in range(num_levels - 1):
+        levels.append(area_downsample(levels[-1], 2))
+    return [lv.reshape(B, H // 2**i, W // 2**i, D, C) for i, lv in enumerate(levels)]
+
+
+class UNetModel(nn.Module):
+    """forward(x (B,H,W,Cin), t (B,), context (B,M,ctx), volume_levels) ->
+    (B, H, W, Cout) fp32."""
+
+    def __init__(
+        self,
+        in_channels: int = 10,
+        model_channels: int = 320,
+        out_channels: int = 5,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4, 2, 1),
+        channel_mult: Sequence[int] = (1, 2, 4, 4),
+        num_heads: int = 8,
+        transformer_depth: int = 1,
+        context_dim: int = 768,
+    ):
+        super().__init__()
+        mc = model_channels
+        emb = mc * 4
+        self.model_channels = mc
+        self.time_embed = nn.ModuleList([Linear(mc, emb), nn.Identity(), Linear(emb, emb)])
+        attn = set(attention_resolutions)
+
+        def site(cls, ch):
+            return cls(ch, num_heads, ch // num_heads, transformer_depth, context_dim)
+
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
+        chans = [mc]
+        ch, ds = mc, 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [ResBlock(ch, mult * mc, emb)]
+                ch = mult * mc
+                if ds in attn:
+                    layers.append(site(SpatialTransformer, ch))
+                self.input_blocks.append(nn.ModuleList(layers))
+                chans.append(ch)
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
+                chans.append(ch)
+                ds *= 2
+        self.middle_block = nn.ModuleList(
+            [ResBlock(ch, ch, emb), site(SpatialTransformer, ch), site(ViewAlignedFeatureTransformer, ch),
+             ResBlock(ch, ch, emb)]
+        )
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(channel_mult))):
+            for i in range(num_res_blocks + 1):
+                layers = [ResBlock(ch + chans.pop(), mult * mc, emb)]
+                ch = mult * mc
+                if ds in attn:
+                    layers += [site(SpatialTransformer, ch), site(ViewAlignedFeatureTransformer, ch)]
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch))
+                    ds //= 2
+                self.output_blocks.append(nn.ModuleList(layers))
+        self.out = nn.ModuleList([GroupNorm32(ch, act="silu"), nn.Identity(), Conv2d(ch, out_channels, 3, padding=1)])
+
+    def forward(self, x, t, context, volume_levels):
+        dt = self.out[2].weight.dtype
+        emb = self.time_embed[0](timestep_embedding(t, self.model_channels))
+        emb = self.time_embed[2](silu(emb))
+        x = x.to(dt)
+        context = context.to(dt)
+        levels = {lv.shape[1]: lv.to(dt) for lv in volume_levels}
+
+        def run(layers, h):
+            for m in layers:
+                if isinstance(m, ResBlock):
+                    h = m(h, emb)
+                elif isinstance(m, SpatialTransformer):
+                    h = m(h, context)
+                elif isinstance(m, ViewAlignedFeatureTransformer):
+                    h = m(h, levels[h.shape[1]])
+                else:
+                    h = m(h)
+            return h
+
+        hs = []
+        h = x
+        for layers in self.input_blocks:
+            h = run(layers, h)
+            hs.append(h)
+        h = run(self.middle_block, h)
+        for layers in self.output_blocks:
+            h = run(layers, torch.cat([h, hs.pop()], dim=-1))
+        return self.out[2](self.out[0](h)).float()

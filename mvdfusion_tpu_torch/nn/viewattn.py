@@ -1,0 +1,180 @@
+"""Depth-guided cross-view attention, GridAttn (torch counterpart of
+mvdfusion_tpu/nn/viewattn.py).
+
+Per denoising step: unbias the noisy depth channel by 1/sqrt(abar_t) and
+jitter it by sqrt(1-abar)/sqrt(abar)/10; shoot one ray per latent pixel to
+that metric depth; reproject every point into all V views and the input
+view; build per-point tokens across V (gathered features + geometric
+embeddings); run the adaLN-Zero DiT across V, softmax-pool and project to a
+(B, H, W, D, out) frustum.
+
+The pre_layer_b Linear over the 723-wide concat is applied factorised: the
+feature-map parts are projected before the gather (they commute with the
+bilinear interpolation), the view-invariant parts form `b_acc`, and the
+geometric parts are repacked into the K4 kernel's `kall` rows. Names follow
+view_attn_efficient2.py (z_embedder.0, pre_layer_b.0, aggregation_transformer
+.layer_list.{i}, weight_layer, final_layer_b).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mvdfusion_tpu_torch.core.schedule import DDPMSchedule
+from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_center, transform_points_ndc
+from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
+from mvdfusion_tpu_torch.geometry.harmonics import harmonic_embed, harmonic_frequencies
+from mvdfusion_tpu_torch.geometry.rays import pixel_rays, plucker_coords, rays_to_points
+from mvdfusion_tpu_torch.nn.layers import Linear, Mlp, TimmAttention, silu
+from mvdfusion_tpu_torch.ops.crossview import (
+    AggregatorWeights,
+    GeoWeights,
+    crossview_aggregate,
+    should_fuse_crossview,
+)
+
+
+class DiTBlock(nn.Module):
+    """adaLN-Zero DiT block; adaLN_modulation = [SiLU, Linear(hid, 6 hid)]."""
+
+    def __init__(self, hidden: int, heads: int, mlp_ratio: float = 2.0):
+        super().__init__()
+        self.attn = TimmAttention(hidden, heads)
+        self.mlp = Mlp(hidden, int(hidden * mlp_ratio), hidden)
+        self.adaLN_modulation = nn.ModuleList([nn.Identity(), Linear(hidden, 6 * hidden)])
+
+
+class AggregationTransformer(nn.Module):
+    def __init__(self, hidden: int, heads: int, num_layers: int = 3, mlp_ratio: float = 2.0):
+        super().__init__()
+        self.layer_list = nn.ModuleList([DiTBlock(hidden, heads, mlp_ratio) for _ in range(num_layers)])
+        self.weight_layer = Linear(hidden, 1)
+
+
+# reference hyperparameters (view_attn_efficient2.py): metric depth range and
+# the harmonic embedding's 7 frequencies omega0 * 2^k
+DEPTH_SCALE, DEPTH_SHIFT = 2.0, 0.5
+N_HARMONIC, OMEGA0 = 7, 0.1
+
+
+class GridAttn(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 5,
+        hidden_size: int = 256,
+        output_dim: int = 768,
+        num_heads: int = 8,
+        mlp_ratio: float = 2.0,
+        num_layers: int = 3,
+        n_pts_per_ray: int = 1,
+    ):
+        super().__init__()
+        self.hidden_size, self.output_dim, self.num_heads = hidden_size, output_dim, num_heads
+        self.n_pts_per_ray = n_pts_per_ray
+        hs = hidden_size
+        # concat order: view feats | input feats | ref plucker | ref depth | query plucker | query depth | mask
+        self.dims = (hs, hs, 90, 15, 90, 15, 1)
+        self.z_embedder = nn.ModuleList([Linear(in_channels, hs)])
+        self.pre_layer_b = nn.ModuleList([Linear(sum(self.dims), hs)])
+        self.aggregation_transformer = AggregationTransformer(hs, num_heads, num_layers, mlp_ratio)
+        self.final_layer_b = Linear(hs, output_dim)
+
+    def part_weight(self, i: int) -> torch.Tensor:
+        """(hid, dims[i]) slice of pre_layer_b for concat slot i."""
+        off = sum(self.dims[:i])
+        return self.pre_layer_b[0].weight[:, off : off + self.dims[i]]
+
+    def _part(self, i: int, x):
+        w = self.part_weight(i)
+        return (x.to(w.dtype).float() @ w.float().t()).to(w.dtype)
+
+    def kernel_weights(self, t_embed0: torch.Tensor):
+        """K4's operands from this module's params: the geometric rows `kall`
+        in the kernel's [raw | sin freq-major | cos] order, and the DiT
+        weights with the shared-t adaLN modulation precomputed (fp32)."""
+        nh, hs = N_HARMONIC, self.hidden_size
+        P90 = self.part_weight(2).t()  # (90, hid): harmonic layout per dim: n sin, n cos ... then raw 6
+        P15 = self.part_weight(3).t()  # (15, hid)
+        kx = torch.cat([P90[12 * nh :], P15[2 * nh :]], dim=0)  # (7, hid)
+        sin_all = torch.cat(
+            [P90[: 6 * nh].reshape(6, nh, hs).transpose(0, 1), P15[:nh].reshape(nh, 1, hs)], dim=1
+        ).reshape(7 * nh, hs)
+        cos_all = torch.cat(
+            [P90[6 * nh : 12 * nh].reshape(6, nh, hs).transpose(0, 1), P15[nh : 2 * nh].reshape(nh, 1, hs)], dim=1
+        ).reshape(7 * nh, hs)
+        geo = GeoWeights(kall=torch.cat([kx, sin_all, cos_all], dim=0), kmask=self.part_weight(6)[:, 0])
+        layers = self.aggregation_transformer.layer_list
+        cs = silu(t_embed0.to(self.pre_layer_b[0].weight.dtype).float())  # shared-t conditioning in dt
+        mods = torch.stack([
+            F.linear(cs, b.adaLN_modulation[1].weight.float(), b.adaLN_modulation[1].bias.float()).reshape(6, hs)
+            for b in layers
+        ])
+        wl = self.aggregation_transformer.weight_layer
+        agg = AggregatorWeights(
+            qkv_w=[b.attn.qkv.weight for b in layers], qkv_b=[b.attn.qkv.bias for b in layers],
+            proj_w=[b.attn.proj.weight for b in layers], proj_b=[b.attn.proj.bias for b in layers],
+            fc1_w=[b.mlp.fc1.weight for b in layers], fc1_b=[b.mlp.fc1.bias for b in layers],
+            fc2_w=[b.mlp.fc2.weight for b in layers], fc2_b=[b.mlp.fc2.bias for b in layers],
+            mods=mods, wl_w=wl.weight, wl_b=wl.bias,
+            fin_w=self.final_layer_b.weight, fin_b=self.final_layer_b.bias,
+        )
+        return geo, agg
+
+    def forward(
+        self,
+        noisy_latents,  # (B, H, W, 5) NHWC
+        batch_cameras: Cameras,  # V == B target cameras
+        predict_mask,  # (B,)
+        t_embed,  # (B, time_embed_dim); only row 0 is used (shared t)
+        t,  # (B,) int timesteps
+        sched: DDPMSchedule,
+        input_latents,  # (1, H, W, 5)
+        input_cameras: Cameras,
+        jitter_noise,  # (B, H, W, D) unit normal
+    ):
+        B, H, W, _ = noisy_latents.shape
+        D, V = self.n_pts_per_ray, B
+        dt = self.pre_layer_b[0].weight.dtype
+
+        # 1. unbiased depth estimate + jitter
+        sqrt_acp = sched.sqrt_alphas_cumprod[t]
+        depth_std = (sched.sqrt_one_minus_alphas_cumprod[t] / sqrt_acp / 10.0)[:, None, None, None]
+        depth = noisy_latents[..., 4:5].float() / sqrt_acp[:, None, None, None]
+        depth = depth.expand(B, H, W, D) + depth_std * jitter_noise.float()
+        depth = torch.clamp((depth + 1.0) * 0.5, 0.0, 1.0) * DEPTH_SCALE + DEPTH_SHIFT
+
+        # 2. rays and world points
+        rays = pixel_rays(batch_cameras, H, W)
+        pts_flat = rays_to_points(rays, depth).reshape(1, B * H * W * D, 3)
+        N = B * H * W * D
+
+        # 3. embedded latents, pre-projected by their pre_layer_b slices
+        z_embed = lambda a: F.gelu(self.z_embedder[0](a))
+        view_feat_p = self._part(0, z_embed(noisy_latents))  # (V, H, W, hid)
+        input_feat_p = self._part(1, z_embed(input_latents))  # (1, H, W, hid)
+        ndc_all = transform_points_ndc(batch_cameras, pts_flat)  # (V, N, 3)
+        ndc_in = transform_points_ndc(input_cameras, pts_flat)  # (1, N, 3)
+
+        # 4. view-invariant token parts: input-view gather + query geometry + bias
+        hembed = lambda a: harmonic_embed(a, N_HARMONIC, OMEGA0)
+        centers = camera_center(batch_cameras)  # (V, 3)
+        q_dir = rays.directions / torch.clamp(torch.linalg.norm(rays.directions, dim=-1, keepdim=True), min=1e-12)
+        q_dir = q_dir[:, :, :, None, :].expand(B, H, W, D, 3).reshape(1, N, 3)
+        q_origin = centers[:, None, None, None, :].expand(B, H, W, D, 3).reshape(1, N, 3)
+        acc_b = (
+            grid_sample(input_feat_p, -ndc_in[..., :2])
+            + self._part(4, hembed(plucker_coords(q_origin, q_dir)))
+            + self._part(5, hembed(depth.reshape(1, N, 1)))
+            + self.pre_layer_b[0].bias.to(dt)
+        )  # (1, N, hid)
+
+        if not should_fuse_crossview(V, H, W, self.hidden_size):
+            raise NotImplementedError(f"GridAttn at V={V}, {H}x{W}, hid={self.hidden_size} is not ported yet")
+        geo, agg = self.kernel_weights(t_embed[0])
+        frustum = crossview_aggregate(
+            -ndc_all[..., :2], pts_flat[0], centers, predict_mask, acc_b[0], view_feat_p, geo, agg,
+            self.num_heads, harmonic_frequencies(N_HARMONIC, OMEGA0),
+        )
+        return frustum.reshape(B, H, W, D, self.output_dim)

@@ -1,0 +1,260 @@
+"""ViewFusion, the top-level multi-view RGB-D latent diffusion model (torch
+counterpart of mvdfusion_tpu/nn/viewfusion.py).
+
+Owns the UNet, VAE, CLIP tower, GridAttn, the eye-initialised cc_projection
+and the auxiliary time-embed MLP, with the state-dict names of the reference
+checkpoint (unet_model.unet_model.*, vae.*, clip_image_encoder.model.visual.*,
+view_attn.*, cc_projection.{0,2,4}, time_embed.{0,2}).
+
+  prepare_batch    VAE encode, depth channels, relative cameras, CLIP + pose
+  apply_model_cfg  GridAttn -> cc_projection -> UNet over one 2B batch (cond
+                   and null conditioning together), then CFG mixing
+  decode_latents   VAE decode to [0, 1] images
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+import torch.nn as nn
+
+from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule
+from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_slice, make_cameras, relative_cameras
+from mvdfusion_tpu_torch.nn.clip import FrozenCLIPImageEmbedder
+from mvdfusion_tpu_torch.nn.layers import GroupNorm32, LayerNormFp32, Linear, silu, timestep_embedding
+from mvdfusion_tpu_torch.nn.unet import UNetModel, volume_pyramid
+from mvdfusion_tpu_torch.nn.vae import AutoencoderKL
+from mvdfusion_tpu_torch.nn.viewattn import GridAttn
+from mvdfusion_tpu_torch.ops.image import area_downsample
+from mvdfusion_tpu_torch.utils.common import normalize, unnormalize
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewFusionConfig:
+    """Static model hyperparameters (configs/mvd_gso.yaml `model.params`)."""
+
+    z_scale_factor: float = 0.18215
+    timesteps: int = 1000
+    linear_start: float = 0.00085
+    linear_end: float = 0.0120
+    time_embed_dim: int = 256
+    latent_size: int = 32
+    viewattn_hidden: int = 256
+    viewattn_layers: int = 3
+    viewattn_heads: int = 8
+    viewattn_mlp_ratio: float = 2.0
+    n_pts_per_ray: int = 1
+    unet_in_channels: int = 10
+    unet_out_channels: int = 5
+    unet_model_channels: int = 320
+    unet_num_res_blocks: int = 2
+    unet_attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    unet_channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    unet_num_heads: int = 8
+    unet_transformer_depth: int = 1
+    context_dim: int = 768
+    vae_embed_dim: int = 4
+    vae_ch: int = 128
+    vae_ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    vae_num_res_blocks: int = 2
+    clip_width: int = 1024
+    clip_layers: int = 24
+    clip_heads: int = 16
+    # compute dtype of the heavy towers (see ViewFusion.cast_for_inference)
+    dtype: Any = torch.bfloat16
+
+    def tiny(self) -> "ViewFusionConfig":
+        """The JAX package's scaled-down test config."""
+        return dataclasses.replace(
+            self,
+            latent_size=16,
+            viewattn_hidden=32,
+            viewattn_layers=2,
+            viewattn_heads=4,
+            unet_model_channels=32,
+            unet_num_res_blocks=1,
+            unet_num_heads=4,
+            context_dim=64,
+            vae_ch=32,
+            vae_ch_mult=(1, 2, 4),
+            vae_num_res_blocks=1,
+            clip_width=64,
+            clip_layers=2,
+            clip_heads=2,
+            time_embed_dim=32,
+            dtype=torch.float32,
+        )
+
+
+class _UNetWrapper(nn.Module):
+    def __init__(self, unet: UNetModel):
+        super().__init__()
+        self.unet_model = unet
+
+
+class ViewFusion(nn.Module):
+    """Built on `device`: the card unless the caller names another."""
+
+    def __init__(self, cfg: ViewFusionConfig, device="cuda"):
+        super().__init__()
+        with torch.device(device):
+            self._build(cfg)
+        self._sched = {}
+
+    def _build(self, cfg: ViewFusionConfig):
+        self.cfg = c = cfg
+        self.unet_model = _UNetWrapper(UNetModel(
+            c.unet_in_channels, c.unet_model_channels, c.unet_out_channels, c.unet_num_res_blocks,
+            c.unet_attention_resolutions, c.unet_channel_mult, c.unet_num_heads, c.unet_transformer_depth,
+            c.context_dim,
+        ))
+        self.vae = AutoencoderKL(c.vae_embed_dim, c.vae_ch, c.vae_ch_mult, c.vae_num_res_blocks)
+        self.clip_image_encoder = FrozenCLIPImageEmbedder(c.clip_width, c.clip_layers, c.clip_heads, c.context_dim)
+        self.view_attn = GridAttn(
+            in_channels=5, hidden_size=c.viewattn_hidden, output_dim=c.context_dim,
+            num_heads=c.viewattn_heads, mlp_ratio=c.viewattn_mlp_ratio, num_layers=c.viewattn_layers,
+            n_pts_per_ray=c.n_pts_per_ray,
+        )
+        d = c.context_dim
+        # [clip | 28-dim pose embed] -> context; first layer eye/zero initialised
+        self.cc_projection = nn.ModuleList(
+            [Linear(d + 28, d), nn.Identity(), Linear(d, d), nn.Identity(), Linear(d, d)]
+        )
+        with torch.no_grad():
+            self.cc_projection[0].weight.zero_()
+            self.cc_projection[0].weight[:d, :d] = torch.eye(d)
+            self.cc_projection[0].bias.zero_()
+        self.time_embed = nn.ModuleList(
+            [Linear(c.time_embed_dim, c.time_embed_dim), nn.Identity(), Linear(c.time_embed_dim, c.time_embed_dim)]
+        )
+
+    @property
+    def unet(self) -> UNetModel:
+        return self.unet_model.unet_model
+
+    def sched(self, device):
+        """The DDPM tables on `device` (built once per device)."""
+        key = str(device)
+        if key not in self._sched:
+            c = self.cfg
+            self._sched[key] = make_ddpm_schedule(c.timesteps, c.linear_start, c.linear_end, device=device)
+        return self._sched[key]
+
+    def cast_for_inference(self):
+        """Cast the towers' weights to cfg.dtype once. GroupNorm and LayerNorm
+        params, the time-embed MLP and cc_projection stay fp32, as they run in
+        fp32 in the reference."""
+        keep = {id(p) for p in self.time_embed.parameters()} | {id(p) for p in self.cc_projection.parameters()}
+        for m in self.modules():
+            if isinstance(m, (GroupNorm32, LayerNormFp32)):
+                keep |= {id(p) for p in m.parameters(recurse=False)}
+        for p in self.parameters():
+            if id(p) not in keep:
+                p.data = p.data.to(self.cfg.dtype)
+        return self
+
+    # ------------------------------------------------------------- VAE / CLIP
+    def encode_images(self, images):
+        """[0, 1] NHWC -> scaled latents (fp32)."""
+        return self.vae.encode_mode(normalize(images)).float() * self.cfg.z_scale_factor
+
+    def decode_latents(self, z):
+        """latents -> [0, 1] NHWC images (fp32)."""
+        return unnormalize(self.vae.decode(z / self.cfg.z_scale_factor).float())
+
+    def embed_time(self, t):
+        h = self.time_embed[0](timestep_embedding(t, self.cfg.time_embed_dim))
+        return self.time_embed[2](silu(h))
+
+    def cc_proj(self, x):
+        x = self.cc_projection[0](x)
+        x = self.cc_projection[2](silu(x))
+        return self.cc_projection[4](silu(x))
+
+    # -------------------------------------------------------------- data prep
+    def prepare_batch(self, images, R, T, f, c, input_idx, target_idx, depths=None):
+        """images (S, H, W, 3) in [0, 1]; cameras (S, ...); input_idx (1,),
+        target_idx (B,) -> (batch_latents, batch_cameras, input_latents,
+        input_cameras, clip_v_embed)."""
+        S, H, W, _ = images.shape
+        B = target_idx.shape[0]
+        ls = self.cfg.latent_size
+        sel = torch.cat([input_idx, target_idx])
+        latents = self.encode_images(images[sel])
+        input_latents, batch_latents = latents[:1], latents[1:]
+        if depths is not None:
+            d = area_downsample(normalize(depths[sel]), H // ls)
+        else:
+            d = torch.zeros(1 + B, ls, ls, 1, device=images.device)
+        input_latents = torch.cat([input_latents, torch.zeros_like(d[:1])], dim=-1)  # input depth zeroed
+        batch_latents = torch.cat([batch_latents, d[1:]], dim=-1)
+
+        cams = relative_cameras(make_cameras(R, T, f, c, device=images.device), input_idx)
+        input_cameras = camera_slice(cams, input_idx)
+        batch_cameras = camera_slice(cams, target_idx)
+
+        clip_embed = self.clip_image_encoder(images[input_idx]).expand(B, 1, -1)
+
+        def cam_vec(cc: Cameras):  # R 9 + T 3 + f 2
+            return torch.cat([cc.R.reshape(len(cc), 1, 9), cc.T[:, None, :], cc.focal_length[:, None, :]], -1)
+
+        cam_embed = torch.cat([cam_vec(input_cameras).expand(B, 1, 14), cam_vec(batch_cameras)], dim=-1)
+        clip_v_embed = torch.cat([clip_embed, cam_embed], dim=-1)
+        return batch_latents, batch_cameras, input_latents, input_cameras, clip_v_embed
+
+    # -------------------------------------------------------------- the model
+    def _unet_inputs(self, noisy_latents, input_latents, frustum):
+        """Concat conditioning with the zero123 quirk: the RGB latent channels
+        are divided by the VAE scale factor, the depth channel is not."""
+        B = noisy_latents.shape[0]
+        xc = input_latents.expand(B, *input_latents.shape[1:])
+        xc = torch.cat([xc[..., :4] / self.cfg.z_scale_factor, xc[..., 4:]], dim=-1)
+        x = torch.cat([noisy_latents, xc], dim=-1)
+        levels = volume_pyramid(frustum.to(self.unet.out[2].weight.dtype), len(self.cfg.unet_channel_mult))
+        return x, levels
+
+    def apply_model_cfg(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
+                        cfg_scale, jitter_noise):
+        """Classifier-free-guided noise prediction; the null condition (zero
+        clip, zero concat, zero frustum) rides the same 2B UNet batch."""
+        B = noisy_latents.shape[0]
+        t_embed = self.embed_time(t)
+        frustum = self.view_attn(
+            noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
+            self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
+        )
+        clip_embed = self.cc_proj(clip_v_embed)
+        x_cond, levels = self._unet_inputs(noisy_latents, input_latents, frustum)
+        x_null = torch.cat([noisy_latents, torch.zeros_like(x_cond[..., 5:])], dim=-1)
+        x2 = torch.cat([x_cond, x_null], dim=0)
+        ctx2 = torch.cat([clip_embed, torch.zeros_like(clip_embed)], dim=0)
+        levels2 = [torch.cat([v, torch.zeros_like(v)], dim=0) for v in levels]
+        pred = self.unet(x2, torch.cat([t, t]), ctx2, levels2)
+        s, s_uc = pred[:B], pred[B:]
+        return s_uc + cfg_scale * (s - s_uc)
+
+
+def randomize_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Replace every parameter with seeded random values (no zero-inits, so
+    every path carries signal): matrices and kernels ~ N(0, 1 / fan_in),
+    norm scales ~ 1 + N(0, 0.1^2), everything else ~ N(0, 0.02^2). The draw
+    runs on the parameters' device from a torch.Generator there."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    norm_scales = {
+        id(m.weight) for m in model.modules()
+        if type(m).__name__ in ("GroupNorm32", "LayerNormFp32") and m.weight is not None
+    }
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=g, device=dev, dtype=torch.float32)
+            if id(p) in norm_scales:
+                p.copy_(1.0 + 0.1 * r)
+            elif p.ndim >= 2 and "embedding" not in name:
+                fan_in = p.shape[0] if name.endswith("visual.proj") else p[0].numel()
+                p.copy_(r / fan_in**0.5)
+            else:
+                p.copy_(0.02 * r)
+    return model

@@ -1,0 +1,68 @@
+"""eta-DDIM sampling loop (torch counterpart of mvdfusion_tpu/pipeline/sampler.py).
+
+A Python loop over the DDIM steps; each step is one `apply_model_cfg` and one
+`ddim_step`, shared timestep across views. All randomness is drawn up front
+from an explicit torch.Generator, or passed in (`init_noise`, `step_noise`,
+`jitter_noise`) so a test can feed the JAX sampler and this one the same
+noise stream.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from mvdfusion_tpu_torch.core.schedule import ddim_step, make_ddim_schedule
+from mvdfusion_tpu_torch.geometry.cameras import Cameras
+from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion
+
+
+class SampleResult(NamedTuple):
+    latents: torch.Tensor  # (B, H, W, C)
+    pred_x0_trajectory: Optional[torch.Tensor]  # (S, B, H, W, C) if requested
+
+
+@torch.no_grad()
+def ddim_sample(
+    model: ViewFusion,
+    batch_cameras: Cameras,
+    input_latents: torch.Tensor,  # (1, h, w, 5)
+    input_cameras: Cameras,
+    clip_v_embed: torch.Tensor,  # (B, 1, ctx + 28)
+    cfg_scale: float,
+    num_steps: int = 50,
+    return_trajectory: bool = False,
+    init_noise: Optional[torch.Tensor] = None,  # (B, H, W, C)
+    step_noise: Optional[torch.Tensor] = None,  # (S, B, H, W, C)
+    jitter_noise: Optional[torch.Tensor] = None,  # (S, B, H, W, D)
+    generator: Optional[torch.Generator] = None,
+) -> SampleResult:
+    """Generate B views of 5-channel (RGB-D) latents with eta=1 DDIM. Loop
+    step i runs DDIM index S-1-i and consumes step_noise[i] and jitter_noise[i]."""
+    cfg = model.cfg
+    dev = clip_v_embed.device
+    B = clip_v_embed.shape[0]
+    H = W = cfg.latent_size
+    C = cfg.unet_out_channels
+    ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev)
+    draw = lambda *shape: torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+    x = draw(B, H, W, C) if init_noise is None else init_noise.to(dev, torch.float32)
+    if step_noise is None:
+        step_noise = draw(num_steps, B, H, W, C)
+    if jitter_noise is None:
+        jitter_noise = draw(num_steps, B, H, W, cfg.n_pts_per_ray)
+    step_noise = step_noise.to(dev, torch.float32)
+    jitter_noise = jitter_noise.to(dev, torch.float32)
+
+    traj = []
+    for i in range(num_steps):
+        index = num_steps - 1 - i
+        t = ddim.timesteps[index].expand(B)
+        noise_pred = model.apply_model_cfg(
+            x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i]
+        )
+        x, pred_x0 = ddim_step(ddim, x, noise_pred, index, step_noise[i])
+        if return_trajectory:
+            traj.append(pred_x0)
+    return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj) if return_trajectory else None)
