@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--steps N] [--profile STEPS]
+    python3 chip_smoke.py [--steps N] [--eval-steps N] [--profile STEPS]
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -10,7 +10,8 @@ Phases, each printed with elapsed seconds as it starts and ends:
               with one nvcc call; prints its seconds and ptxas' registers,
               shared memory and spills per kernel
   3. kernels  each hand-written kernel against its plain PyTorch version at
-              the flagship's shapes in bf16 (and at small shapes in fp32),
+              the shapes of the flagship and of the eval path in bf16 (and
+              at small shapes in fp32),
               with the tolerance stated; times kernel, plain version and,
               where one exists, the one PyTorch call computing the same thing
   4. slice    the full-width model (random weights from a seed, built on the
@@ -18,6 +19,13 @@ Phases, each printed with elapsed seconds as it starts and ends:
               --steps eta=1 DDIM steps for 8 target views at CFG 2.5, decode;
               checks shapes, finiteness, the [0, 1] image range and that every
               kernel's launch count rose by what the path implies
+  5. eval     the same model runs the evaluation path (configs/gso.yaml's
+              protocol: 1 input view -> 15 target views on the 16-view GSO
+              rig, CFG batch 30) on one in-memory scene of random 256^2
+              images through pipeline/eval.py::eval_scenes for --eval-steps
+              steps, then utils/metrics.py; checks shapes, finiteness, the
+              [0, 1] range, finite metrics, and that GridAttn took the
+              two-phase K4 form on every step
 The last two lines are the kernels' JSON record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
 """
@@ -25,6 +33,7 @@ Comparisons run with TF32 off for matmuls and convolutions.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import shutil
@@ -40,6 +49,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 REQUESTS = 2  # scenes, one seed each
+# VAE GroupNorms whose (HW, C) slice passes K1's gate (HW*C <= 2^20: the 32^2
+# levels) in one encode and in one decode call at 256^2
+VAE_GN_ENCODE = VAE_GN_DECODE = 11
+EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
 ITERS = 20  # timed launches per kernel after warm-up
 
 
@@ -108,6 +121,27 @@ def compare(name, got, want, rtol: float, why: str, dtype) -> float:
     return err
 
 
+def compare_tokens(name, got, want, bound) -> float:
+    """Phase-1 tokens, bf16: |kernel - plain| <= 1 bf16 ulp of the larger
+    token (each side rounds its fp32 sum once) + `bound`, the fp32 sums'
+    own difference (crossview.gather_tokens_bound). Logs the element that
+    comes closest with its parts; returns the largest |diff| in bf16 ulps."""
+    got, want = got.float(), want.float()
+    mag = got.abs().maximum(want.abs())
+    ulp = (mag.clamp_min(2.0**-126).log2().floor() - 7).exp2()
+    diff = (got - want).abs()
+    ratio = diff / (ulp + bound)
+    i = int(ratio.argmax())
+    worst = ratio.flatten()[i].item()
+    at = lambda t: t.flatten()[i].item()
+    ok = math.isfinite(worst) and worst <= 1.0
+    log(f"  {name} [bf16]: max|kernel - plain| / (1 ulp + sum bound) = {worst:.3f} at |diff| {at(diff):.3e}, "
+        f"token {at(want):.3e}, ulp {at(ulp):.3e}, sum bound {at(bound):.3e}; max {(diff / ulp).max().item():.2f} ulp, "
+        f"{(diff > ulp).float().mean().item() * 100:.4f}% of tokens over 1 ulp -> {'ok' if ok else 'MISS'}")
+    check(ok, f"{name}: kernel disagrees with its plain version ({worst:.3f} of the allowance)")
+    return (diff / ulp).max().item()
+
+
 # ---------------------------------------------------------------- phase 3
 def kernel_checks():
     import torch
@@ -124,9 +158,11 @@ def kernel_checks():
     bf = torch.bfloat16
     rows = {}
 
-    # K1 GroupNorm: the UNet's 32^2 C=320 slices at the 2B=16 CFG batch
+    # K1 GroupNorm: the UNet's 32^2 C=320 slices at the eval path's CFG batch
+    # 2B=30 and the flagship's 2B=16 (timed)
     log(" K1 groupnorm")
-    for dt, shape, rtol in ((torch.float32, (2, 64, 96), 1e-4), (bf, (16, 1024, 320), 2e-2)):
+    for dt, shape, rtol in ((torch.float32, (2, 64, 96), 1e-4), (bf, (30, 1024, 320), 2e-2),
+                            (bf, (16, 1024, 320), 2e-2)):
         x = rnd(*shape, dt=dt) * 3 + 1
         w, b = 1 + rnd(shape[-1], std=0.1), rnd(shape[-1], std=0.1)
         for act, eps in (("silu", 1e-5), ("none", 1e-6)):
@@ -169,6 +205,7 @@ def kernel_checks():
                              shape="q/k/v (1, 257, 16, 64) bf16 (CLIP)")
 
     # K3 transformer site: 32^2 C=320 (row attn2) and 16^2 C=640 (attn2 map)
+    # at the eval path's CFG batch 30 and the flagship's 16 (timed)
     log(" K3 transformer_block")
 
     def site(B, N, C, dt, a2_map):
@@ -187,6 +224,8 @@ def kernel_checks():
     for dt, (B, N, C, heads, a2_map), rtol in (
         (torch.float32, (2, 128, 64, 4, False), 1e-4),
         (torch.float32, (2, 128, 64, 8, True), 1e-4),
+        (bf, (30, 256, 640, 8, True), 3e-2),
+        (bf, (30, 1024, 320, 8, False), 3e-2),
         (bf, (16, 256, 640, 8, True), 3e-2),
         (bf, (16, 1024, 320, 8, False), 3e-2),
     ):
@@ -244,6 +283,41 @@ def kernel_checks():
         source="mvdfusion_tpu_torch/csrc/crossview.cu (+ block.cu)",
         replaces="mvdfusion_tpu/ops/crossview.py:562", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="V=8, N=8192, hid 256, 3 layers, 8 heads, out 768, bf16")
+    # K4b cross-view aggregation, two-phase form: the 15-view evaluation
+    # (V=15 x 32^2 points); phase-1 tokens held to 1 bf16 ulp
+    log(" K4b crossview_two_phase")
+    for dt, (V, Hh, hid, L, heads, out_dim), rtol in (
+        (torch.float32, (3, 8, 64, 2, 4, 48), 1e-4),
+        (bf, (15, 32, 256, 3, 8, 768), 3e-2),
+    ):
+        args, N, mlp, G = cv_inputs(V, Hh, hid, L, heads, out_dim, dt)
+        geo_args = args[:4] + (args[5], args[6], args[9])  # xy, pts, centers, mask, maps_p, kg, freqs
+        tok = K4.launch_gather_tokens(*geo_args)
+        tok_plain = K4.gather_tokens_plain(*geo_args).to(dt).transpose(0, 1)
+        if dt == bf:
+            compare_tokens(f"crossview_two_phase phase-1 tokens V={V} N={N}", tok, tok_plain,
+                           K4.gather_tokens_bound(*geo_args).transpose(0, 1))
+        else:
+            compare(f"crossview_two_phase phase-1 tokens V={V} N={N}", tok, tok_plain, 1e-4, "fp32 sum order", dt)
+        err = compare(f"crossview_two_phase V={V} N={N} hid={hid}", K4.launch_crossview_two_phase(*args),
+                      K4.crossview_two_phase_plain(*args), rtol,
+                      "bf16 operands, tokens rounded at the same point, fp32 residual stream on both sides"
+                      if dt == bf else "fp32 sum order", dt)
+    ms = time_ms(lambda: K4.launch_crossview_two_phase(*args), ITERS)
+    phase1_ms = time_ms(lambda: K4.launch_gather_tokens(*geo_args), ITERS)
+    plain_ms = time_ms(lambda: K4.crossview_two_phase_plain(*args), max(2, ITERS // 4))
+    T = N * V
+    flops = (2 * T * (G + 4) * hid + L * (2 * T * hid * (4 * hid + 2 * mlp) + 4 * T * V * hid)
+             + 2 * N * hid * out_dim)
+    bms, by = bound(flops, nbytes(*args[:6]) + nbytes(*args[6]) + nbytes(*args[7]) + N * out_dim * 2)
+    log(f"  crossview_two_phase: phase 1 (gather + geometry, bf16 tokens) {phase1_ms:.4f} ms of {ms:.4f} ms; "
+        f"{flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s")
+    rows["crossview_two_phase"] = dict(
+        name="crossview_two_phase", route="cuda",
+        source="mvdfusion_tpu_torch/csrc/crossview.cu (+ block.cu)",
+        replaces="mvdfusion_tpu/ops/crossview.py:404", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape="V=15, N=15360, hid 256, 3 layers, 8 heads, out 768, bf16")
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -252,24 +326,34 @@ def kernel_checks():
 
 
 # ---------------------------------------------------------------- phase 4
-def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: int = 0):
+def build_model(device: str = "cuda", cfg=None):
+    """The full-width model (or `cfg`) with random weights from SEED, towers
+    cast to cfg.dtype."""
+    import torch
+
+    from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
+
+    cfg = cfg or ViewFusionConfig()
+    model = randomize_(ViewFusion(cfg, device=torch.device(device)), SEED).cast_for_inference().eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  ViewFusion built on {device}: {n_params / 1e9:.3f} B parameters, towers in {cfg.dtype}")
+    return model
+
+
+def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: int = 0, model=None):
     """Drive the port's main path; `device`/`cfg` let the same code be
     rehearsed on the CPU at the tiny config (launch counts are then 0)."""
     import numpy as np
     import torch
 
     from mvdfusion_tpu_torch.geometry.cameras import look_at_view_transform
-    from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
     from mvdfusion_tpu_torch.ops import _lib
     from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
 
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    cfg = cfg or ViewFusionConfig()
-    model = ViewFusion(cfg, device=dev)
-    randomize_(model, SEED).cast_for_inference().eval()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  ViewFusion built on {dev}: {n_params / 1e9:.3f} B parameters, towers in {cfg.dtype}")
+    model = model if model is not None else build_model(device, cfg)
+    cfg = model.cfg
     S, B, ls = 9, 8, cfg.latent_size
     IMG = ls * 2 ** (len(cfg.vae_ch_mult) - 1)
     R, T = look_at_view_transform(dist=1.5, elev=20.0, azim=np.linspace(0, 360, S, endpoint=False) + 90)
@@ -319,12 +403,13 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     #  attention: 24 CLIP layers per scene (the VAE's dh=512 heads run at
     #    batch 9 and 8, outside the gate)
     #  transformer_block: 16 sites per step (8 at 32^2 C=320, 8 at 16^2 C=640)
-    #  crossview: 1 per step
+    #  crossview: 1 per step, the single form (8 views: 4 MiB of maps)
     want = {
-        "groupnorm": REQUESTS * (steps * 55 + 22),
+        "groupnorm": REQUESTS * (steps * 55 + VAE_GN_ENCODE + VAE_GN_DECODE),
         "attention": REQUESTS * 24,
         "transformer_block": REQUESTS * steps * 16,
         "crossview": REQUESTS * steps,
+        "crossview_two_phase": 0,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
@@ -334,6 +419,79 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     mean = lambda a: sum(a) / len(a)
     log(f"  slice: {mean(step_s):.4f} s/step, {B / mean(req_s):.3f} views/s ({REQUESTS} requests of {B} views, "
         f"{steps} steps), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 5
+def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
+    """The evaluation path on one in-memory scene: the 16-view GSO rig,
+    random 256^2 images from a numpy seed, 1 input and 15 target views
+    (cli/demo.py's split), eval_scenes, then the quality and consistency
+    metrics. `device`/`cfg` let it be rehearsed on the CPU at the tiny config."""
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.ops.crossview import crossview_route
+    from mvdfusion_tpu_torch.ops.image import area_downsample
+    from mvdfusion_tpu_torch.pipeline.eval import eval_scenes
+    from mvdfusion_tpu_torch.utils.metrics import cross_view_consistency, perceptual_distance, psnr, ssim
+
+    dev = torch.device(device)
+    model = model if model is not None else build_model(device, cfg)
+    cfg = model.cfg
+    ls, B = cfg.latent_size, EVAL_TARGETS
+    IMG = ls * 2 ** (len(cfg.vae_ch_mult) - 1)
+    R, T, f, c = fixed_rig(AZIMUTHS_16, ELEVATIONS_16)
+    images = np.random.default_rng(SEED).uniform(size=(1, 16, IMG, IMG, 3)).astype(np.float32)
+    sel = np.linspace(0, 15, 1 + B).astype(np.int64)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    route = crossview_route(B, ls, ls, cfg.viewattn_hidden, cfg.dtype)
+    log(f"  scene: 16-view GSO rig, images {IMG}^2, input view {sel[0]}, targets {sel[1:].tolist()}; "
+        f"GridAttn route at V={B}: {route}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    timings = []
+    out = eval_scenes(model, on(images), on(R[None]), on(T[None]), on(f[None]), on(c[None]), on(sel[:1]),
+                      on(sel[1:]), 2.5, num_steps=steps, generators=[torch.Generator(device=dev).manual_seed(SEED)],
+                      timings=timings)
+    counts = dict(_lib.LAUNCHES)
+    o = {k: v[0].float().cpu().numpy() for k, v in out._asdict().items()}
+    t = timings[0]
+    log(f"  scene: prepare {t['prepare']:.3f}s, {steps} steps {t['sample']:.3f}s ({t['sample'] / steps:.4f} s/step), "
+        f"decode {t['decode']:.3f}s, {sum(t.values()):.3f} s/scene; image range "
+        f"[{o['pred_rgb'].min():.4f}, {o['pred_rgb'].max():.4f}]")
+    check(o["pred_rgb"].shape == (B, IMG, IMG, 3) and o["gt_rgb"].shape == (B, IMG, IMG, 3),
+          f"image shape {o['pred_rgb'].shape}")
+    check(o["pred_depth"].shape == (B, ls, ls, 1) and o["gt_depth"].shape == (B, ls, ls, 1),
+          f"depth shape {o['pred_depth'].shape}")
+    check(o["input_depth"].shape == (1, ls, ls, 1), f"input depth shape {o['input_depth'].shape}")
+    check(all(np.isfinite(v).all() for v in o.values()), "non-finite output")
+    check(all(v.min() >= 0 and v.max() <= 1 for v in o.values()), "outputs outside [0, 1]")
+    rgb_lr = area_downsample(torch.as_tensor(o["pred_rgb"]), IMG // ls).numpy()
+    cons = cross_view_consistency(rgb_lr, o["pred_depth"], R[sel[1:]], T[sel[1:]], f[sel[1:]], c[sel[1:]])
+    metrics = dict(psnr=psnr(o["pred_rgb"], o["gt_rgb"]), ssim=ssim(o["pred_rgb"], o["gt_rgb"]),
+                   perceptual=perceptual_distance(o["pred_rgb"], o["gt_rgb"]), photo_mae=cons["photo_mae"],
+                   depth_agree_rate=cons["depth_agree_rate"], covis_frac=cons["covis_frac"])
+    log("  metrics (random weights): " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric {metrics}")
+    if dev.type != "cuda":
+        return counts
+    chunks = -(-B // 8)  # decode_latents_chunked's chunks of 8, for prediction and ground truth
+    want = {
+        "groupnorm": steps * 55 + VAE_GN_ENCODE + 2 * chunks * VAE_GN_DECODE,
+        "attention": 24,  # CLIP; the VAE's dh=512 heads run at batch >= 2, outside K2's gate
+        "transformer_block": steps * 16,
+        "crossview_two_phase": steps,
+        "crossview": 0,
+    }
+    log(f"  launch counts {counts}, implied {want}")
+    for k, n in want.items():
+        check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    log(f"  eval: {t['sample'] / steps:.4f} s/step, {sum(t.values()):.3f} s/scene ({B} target views, {steps} steps, "
+        f"CFG batch {2 * B}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
     return counts
 
 
@@ -370,6 +528,8 @@ def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10, help="DDIM steps per request (50 is the flagship)")
+    ap.add_argument("--eval-steps", type=int, default=10,
+                    help="DDIM steps of the evaluation scene (50 is the paper's protocol)")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler")
     args = ap.parse_args()
@@ -407,10 +567,24 @@ def main() -> int:
         rows = kernel_checks()
 
     with Phase("slice"):
-        counts = run_slice(args.steps, card, profile=args.profile)
+        model = build_model()
+        counts = run_slice(args.steps, card, profile=args.profile, model=model)
 
+    with Phase("eval"):
+        eval_counts = run_eval(args.eval_steps, card, model=model)
+        found = {}
+        for mod in ("yaml", "PIL", "imageio"):
+            try:
+                importlib.import_module(mod)
+                found[mod] = "yes"
+            except ImportError:
+                found[mod] = "no"
+        log("  modules for the demo CLI on this machine: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+
+    # launches of the phase that drives each kernel's path: the flagship
+    # slice for K1-K4, the evaluation scene for the two-phase K4
     for name, r in rows.items():
-        r["launches"] = counts.get(name, 0)
+        r["launches"] = (eval_counts if name == "crossview_two_phase" else counts).get(name, 0)
         r.pop("shape")
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -24,12 +24,19 @@ def bilinear_taps(xy: torch.Tensor, H: int, W: int):
     return idx, w
 
 
-def grid_sample(features: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """features (B, H, W, C), xy (B, N, 2) -> (B, N, C) in the features' dtype
-    (fp32 interpolation)."""
+def bilinear_gather(features: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """features (B, H, W, C), xy (B, N, 2) -> (B, N, C) fp32: the 4-tap
+    interpolation with the weights rounded to the features' dtype (as the
+    reference's one-hot matmul sampler rounds its weight matrix), summed in
+    fp32."""
     B, H, W, C = features.shape
     N = xy.shape[1]
     idx, w = bilinear_taps(xy, H, W)  # (B, N, 4)
     flat = features.reshape(B, H * W, C).float()
     g = torch.gather(flat, 1, idx.reshape(B, N * 4, 1).expand(B, N * 4, C)).reshape(B, N, 4, C)
-    return (g * w[..., None]).sum(dim=2).to(features.dtype)
+    return (g * w.to(features.dtype).float()[..., None]).sum(dim=2)
+
+
+def grid_sample(features: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """bilinear_gather in the features' dtype."""
+    return bilinear_gather(features, xy).to(features.dtype)

@@ -1,9 +1,10 @@
 """Depth-guided cross-view attention, GridAttn (torch counterpart of
 mvdfusion_tpu/nn/viewattn.py).
 
-Per denoising step: unbias the noisy depth channel by 1/sqrt(abar_t) and
-jitter it by sqrt(1-abar)/sqrt(abar)/10; shoot one ray per latent pixel to
-that metric depth; reproject every point into all V views and the input
+Per denoising step: unbias the noisy depth channel by 1/sqrt(abar_t) (or
+take the caller's depth, `overwrite_attn_depth`) and jitter it by
+sqrt(1-abar)/sqrt(abar)/10; shoot one ray per latent pixel to that metric
+depth; reproject every point into all V views and the input
 view; build per-point tokens across V (gathered features + geometric
 embeddings); run the adaLN-Zero DiT across V, softmax-pool and project to a
 (B, H, W, D, out) frustum.
@@ -133,15 +134,19 @@ class GridAttn(nn.Module):
         input_latents,  # (1, H, W, 5)
         input_cameras: Cameras,
         jitter_noise,  # (B, H, W, D) unit normal
+        overwrite_attn_depth=None,  # (B, H, W, 1): the sampler's previous pred_x0 depth
     ):
         B, H, W, _ = noisy_latents.shape
         D, V = self.n_pts_per_ray, B
         dt = self.pre_layer_b[0].weight.dtype
 
-        # 1. unbiased depth estimate + jitter
+        # 1. depth: the unbiased estimate (or the given override) + jitter
         sqrt_acp = sched.sqrt_alphas_cumprod[t]
         depth_std = (sched.sqrt_one_minus_alphas_cumprod[t] / sqrt_acp / 10.0)[:, None, None, None]
-        depth = noisy_latents[..., 4:5].float() / sqrt_acp[:, None, None, None]
+        if overwrite_attn_depth is None:
+            depth = noisy_latents[..., 4:5].float() / sqrt_acp[:, None, None, None]
+        else:
+            depth = overwrite_attn_depth.float()
         depth = depth.expand(B, H, W, D) + depth_std * jitter_noise.float()
         depth = torch.clamp((depth + 1.0) * 0.5, 0.0, 1.0) * DEPTH_SCALE + DEPTH_SHIFT
 

@@ -9,7 +9,8 @@ view_attn.*, cc_projection.{0,2,4}, time_embed.{0,2}).
   prepare_batch    VAE encode, depth channels, relative cameras, CLIP + pose
   apply_model_cfg  GridAttn -> cc_projection -> UNet over one 2B batch (cond
                    and null conditioning together), then CFG mixing
-  decode_latents   VAE decode to [0, 1] images
+  decode_latents   VAE decode to [0, 1] images (decode_latents_chunked: in
+                   batches of at most 8 views)
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ class ViewFusionConfig:
     """Static model hyperparameters (configs/mvd_gso.yaml `model.params`)."""
 
     z_scale_factor: float = 0.18215
+    # feed each step's pred_x0 depth to the next step's GridAttn (sampler)
+    feed_prev_depth: bool = False
     timesteps: int = 1000
     linear_start: float = 0.00085
     linear_end: float = 0.0120
@@ -164,6 +167,13 @@ class ViewFusion(nn.Module):
         """latents -> [0, 1] NHWC images (fp32)."""
         return unnormalize(self.vae.decode(z / self.cfg.z_scale_factor).float())
 
+    def decode_latents_chunked(self, z, max_batch: int = 8):
+        """decode_latents in chunks of at most max_batch views, bounding the
+        VAE decoder's activation memory (the reference declares
+        vae_max_batch=8). The last chunk runs short; the reference pads it
+        with zeros, which gives the same views."""
+        return torch.cat([self.decode_latents(c) for c in torch.split(z, max_batch)])
+
     def embed_time(self, t):
         h = self.time_embed[0](timestep_embedding(t, self.cfg.time_embed_dim))
         return self.time_embed[2](silu(h))
@@ -216,14 +226,17 @@ class ViewFusion(nn.Module):
         return x, levels
 
     def apply_model_cfg(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
-                        cfg_scale, jitter_noise):
+                        cfg_scale, jitter_noise, prev_depth=None):
         """Classifier-free-guided noise prediction; the null condition (zero
-        clip, zero concat, zero frustum) rides the same 2B UNet batch."""
+        clip, zero concat, zero frustum) rides the same 2B UNet batch.
+        `prev_depth` (B, H, W, 1), if given, replaces GridAttn's depth
+        estimate (feed_prev_depth)."""
         B = noisy_latents.shape[0]
         t_embed = self.embed_time(t)
         frustum = self.view_attn(
             noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
             self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
+            overwrite_attn_depth=prev_depth,
         )
         clip_embed = self.cc_proj(clip_v_embed)
         x_cond, levels = self._unet_inputs(noisy_latents, input_latents, frustum)

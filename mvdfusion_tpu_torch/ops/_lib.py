@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mvdf_layernorm": "pipppiiifp",
     "mvdf_gemm": "ppppipipiipiiiiip",
     "mvdf_cv_gather": "pppppppppipiiiiiip",
+    "mvdf_cv_gather_tokens": "ppppppppipiiiiiip",
+    "mvdf_cv_token_gelu": "pppiiiip",
     "mvdf_cv_attention": "ppiiiifip",
     "mvdf_cv_pool": "ppppiiiip",
 }

@@ -1,19 +1,27 @@
 """K4: cross-view aggregation, the GridAttn hot path.
 
-Replaces mvdfusion_tpu/ops/crossview.py::_crossview_fwd_impl, single-kernel
-form (_kernel with _geo_aug_t, _erf/_gelu, _dit_pool). For each query point
-and each of V views: a bilinear gather from the view's pre-projected map at
-the negated NDC coordinates, + the geometric embedding (ray direction,
-Plucker moment, depth and their sin/cos at omega0 * 2^k, through `kall`),
-+ mask * kmask + b_acc, exact GELU; then the adaLN-Zero DiT layers across V
-(modulation precomputed once per step), a softmax pool over V and
-final_layer.
+Replaces mvdfusion_tpu/ops/crossview.py::_crossview_fwd_impl in both its
+forms. For each query point and each of V views: a bilinear gather from the
+view's pre-projected map at the negated NDC coordinates, + the geometric
+embedding (ray direction, Plucker moment, depth and their sin/cos at
+omega0 * 2^k, through `kall`), + mask * kmask + b_acc, exact GELU; then the
+adaLN-Zero DiT layers across V (modulation precomputed once per step), a
+softmax pool over V and final_layer.
+
+The reference routes by the size of the V projected maps (`crossview_route`,
+its exact byte test): up to 6 MiB the single-kernel form (_kernel), above it
+the two-phase form (_gather_kernel, then _dit_kernel), whose phase 1 rounds
+the gathered tokens to the maps' dtype before b_acc and the GELU. In bf16 at
+32^2 latents and hid 256 that is V >= 13 views, so the 15-target evaluation
+takes the two-phase form on every step.
 
 On the card (see csrc/crossview.cu for the design): the gather kernel writes
-fp32 (N, V, hid) tokens; each DiT layer is LayerNorm -> GEMM (qkv, fp32) ->
-per-point view attention -> GEMM with a gated in-place residual -> LayerNorm
--> GEMM + GELU -> GEMM with a gated residual; then the pool kernel and the
-final GEMM. The residual stream stays fp32 as in the reference kernel.
+fp32 (N, V, hid) tokens (single form), or tokens in the maps' dtype that a
+second elementwise kernel turns into fp32 GELU(tok + b_acc) (two-phase form);
+each DiT layer is then LayerNorm -> GEMM (qkv, fp32) -> per-point view
+attention -> GEMM with a gated in-place residual -> LayerNorm -> GEMM + GELU
+-> GEMM with a gated residual; then the pool kernel and the final GEMM. The
+residual stream stays fp32 as in the reference kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
+from mvdfusion_tpu_torch.geometry.gridsample import bilinear_gather
 from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.block import ACT_GELU, gemm, layernorm
 
@@ -62,6 +70,17 @@ def should_fuse_crossview(V: int, H: int, W: int, hid: int) -> bool:
     return V <= 16 and H * W <= 8192 and hid <= 512
 
 
+# the reference's budget for all V projected maps resident in one kernel
+# (ops/crossview.py:559); above it the two-phase form
+_SINGLE_KERNEL_MAPS_BYTES = 6 * 1024 * 1024
+
+
+def crossview_route(V: int, H: int, W: int, hid: int, dtype: torch.dtype) -> str:
+    """The form K4 takes, "single" or "two_phase", by the reference's test
+    V * H * W * hid * itemsize <= _SINGLE_KERNEL_MAPS_BYTES (:583)."""
+    return "single" if V * H * W * hid * dtype.itemsize <= _SINGLE_KERNEL_MAPS_BYTES else "two_phase"
+
+
 def geo_aug(pts, centers, freqs):
     """(V, N, 7 * (1 + 2 * nh)) fp32: [dir | o x dir | depth] raw, then sin
     and cos of each feature times each frequency, frequency-major."""
@@ -81,24 +100,49 @@ def _layernorm_plain(x, eps=_DIT_LN_EPS):
     return (x - mu) * torch.rsqrt(var + eps)
 
 
-def crossview_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
-                    heads: int, freqs: tuple):
-    """Plain PyTorch version. xy (V, N, 2) negated NDC, pts (N, 3), centers
-    (V, 3), mask (V,), b_acc (N, hid), maps_p (V, H, W, hid) -> (N, out_dim)
-    in maps_p's dtype. Products take dt-rounded operands with fp32 results;
-    the residual stream, the geometric features and the gather are fp32."""
-    V, N, _ = xy.shape
-    hid = maps_p.shape[-1]
+def gather_tokens_plain(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: tuple):
+    """(V, N, hid) fp32 tokens before b_acc: the bilinear gather + geo_aug @
+    kall + mask * kmask, the hat weights and geo_aug rounded to maps_p's
+    dtype before their products as in both reference forms (:171,:174 and
+    :429,:432); sums in fp32."""
     dt = maps_p.dtype
+    geo = geo_aug(pts, centers, freqs).to(dt).float() @ kg.kall.to(dt).float()
+    return bilinear_gather(maps_p, xy) + geo + mask.float()[:, None, None] * kg.kmask.float()
+
+
+def gather_tokens_bound(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: tuple, flips: int = 2):
+    """(V, N, hid) fp32 bound on the difference of two fp32 evaluations of
+    gather_tokens_plain's sum, such as the gather kernel's and this file's:
+    n * 2^-23 * sum|terms| for its n = G + 5 terms summed in any order (the
+    products of bf16 operands are exact in fp32), plus `flips` one-ulp
+    changes of the largest bf16-rounded geometric product, where the two
+    evaluations' fp32 features (sin/cos, sqrt, division in other forms)
+    straddle a bf16 rounding boundary. For tokens in maps_p's dtype add one
+    ulp of that dtype for their final rounding."""
+    dt = maps_p.dtype
+    aug = geo_aug(pts, centers, freqs).to(dt).float().abs()
+    kall = kg.kall.to(dt).float().abs()
+    terms = bilinear_gather(maps_p.abs(), xy) + aug @ kall + (mask.float()[:, None, None] * kg.kmask.float()).abs()
+    bound = (kall.shape[0] + 5) * 2.0**-23 * terms
+    if flips and dt != torch.float32:
+        top = torch.zeros_like(terms)
+        for g in range(kall.shape[0]):
+            torch.maximum(top, aug[..., g : g + 1] * kall[g], out=top)
+        bound += flips * torch.finfo(dt).eps * top
+    return bound
+
+
+def _dit_pool_plain(x, w: AggregatorWeights, heads: int, dt):
+    """x (N, V, hid) fp32 GELU'd tokens -> (N, out_dim) in dt: the DiT
+    layers across V, the softmax pool and final_layer (the reference's
+    _dit_pool, shared by both forms)."""
+    N, V, hid = x.shape
     dh = hid // heads
 
     def mm(a, k, b=None):  # k in (out, in) layout
         y = a.to(dt).float() @ k.to(dt).float().t()
         return y if b is None else y + b.float()
 
-    gathered = grid_sample(maps_p.float(), xy.float())  # (V, N, hid)
-    toks = gathered + geo_aug(pts, centers, freqs) @ kg.kall.float() + mask.float()[:, None, None] * kg.kmask.float()
-    x = F.gelu(toks.transpose(0, 1) + b_acc.float()[:, None, :])  # (N, V, hid)
     xf = x.reshape(N * V, hid)
     for l in range(len(w.qkv_w)):
         m = w.mods[l].float()
@@ -115,24 +159,36 @@ def crossview_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: Ag
     return mm(pooled, w.fin_w, w.fin_b).to(dt)
 
 
-def launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
-                     heads: int, freqs: tuple):
-    """K4 on the card: gather, DiT layers, pool and output GEMM (no counting)."""
-    V, N, _ = xy.shape
-    _, H, W_, hid = maps_p.shape
-    dt = maps_p.dtype
-    dev = maps_p.device
+def crossview_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
+                    heads: int, freqs: tuple):
+    """Plain PyTorch version of the single form. xy (V, N, 2) negated NDC,
+    pts (N, 3), centers (V, 3), mask (V,), b_acc (N, hid), maps_p
+    (V, H, W, hid) -> (N, out_dim) in maps_p's dtype. Products take
+    dt-rounded operands with fp32 results; the residual stream and all
+    sums are fp32."""
+    tok = gather_tokens_plain(xy, pts, centers, mask, maps_p, kg, freqs)
+    x = F.gelu(tok.transpose(0, 1) + b_acc.float()[:, None, :])  # (N, V, hid)
+    return _dit_pool_plain(x, w, heads, maps_p.dtype)
+
+
+def crossview_two_phase_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
+                              heads: int, freqs: tuple):
+    """Plain PyTorch version of the two-phase form: phase 1's tokens are
+    rounded to maps_p's dtype (the reference's `tok.astype(out_ref.dtype)`,
+    :436) before phase 2 adds b_acc in fp32 and applies the GELU (:454).
+    Identical to crossview_plain in fp32."""
+    tok = gather_tokens_plain(xy, pts, centers, mask, maps_p, kg, freqs).to(maps_p.dtype)
+    x = F.gelu(tok.float().transpose(0, 1) + b_acc.float()[:, None, :])
+    return _dit_pool_plain(x, w, heads, maps_p.dtype)
+
+
+def _launch_dit_pool(x, N: int, V: int, w: AggregatorWeights, heads: int, dt):
+    """x (N * V, hid) fp32 GELU'd tokens, updated in place -> (N, out_dim)."""
+    hid = x.shape[-1]
     code = _lib.dtype_code(dt)
     c = lambda t: t.to(dt).contiguous()
     f = lambda t: t.float().contiguous()
-    x = torch.empty(N * V, hid, dtype=torch.float32, device=dev)
-    freq_t = torch.tensor(freqs, dtype=torch.float32, device=dev)
-    _lib.call(
-        "mvdf_cv_gather", f(xy), f(pts), f(centers), f(mask),
-        c(b_acc), c(maps_p), c(kg.kall), f(kg.kmask),
-        freq_t, len(freqs), x, V, N, H, W_, hid, code,
-    )
-    att = torch.empty(N * V, hid, dtype=dt, device=dev)
+    att = torch.empty(N * V, hid, dtype=dt, device=x.device)
     for l in range(len(w.qkv_w)):
         m = f(w.mods[l])
         h = layernorm(x, 1 + m[1], m[0], _DIT_LN_EPS, out_dtype=dt)
@@ -143,18 +199,76 @@ def launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: A
         h = layernorm(x, 1 + m[4], m[3], _DIT_LN_EPS, out_dtype=dt)
         h = gemm(h, c(w.fc1_w[l]), w.fc1_b[l], act=ACT_GELU)
         gemm(h, c(w.fc2_w[l]), w.fc2_b[l], gate=m[5], res1=x, out=x)
-    pooled = torch.empty(N, hid, dtype=dt, device=dev)
+    pooled = torch.empty(N, hid, dtype=dt, device=x.device)
     _lib.call("mvdf_cv_pool", x, c(w.wl_w.reshape(-1)), f(w.wl_b.reshape(-1)),
               pooled, N, V, hid, code)
     return gemm(pooled, c(w.fin_w), w.fin_b)
 
 
+def launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
+                     heads: int, freqs: tuple):
+    """K4's single form on the card: gather, DiT layers, pool and output
+    GEMM (no counting)."""
+    V, N, _ = xy.shape
+    _, H, W_, hid = maps_p.shape
+    dt = maps_p.dtype
+    c = lambda t: t.to(dt).contiguous()
+    f = lambda t: t.float().contiguous()
+    x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
+    freq_t = torch.tensor(freqs, dtype=torch.float32, device=maps_p.device)
+    _lib.call(
+        "mvdf_cv_gather", f(xy), f(pts), f(centers), f(mask),
+        c(b_acc), c(maps_p), c(kg.kall), f(kg.kmask),
+        freq_t, len(freqs), x, V, N, H, W_, hid, _lib.dtype_code(dt),
+    )
+    return _launch_dit_pool(x, N, V, w, heads, dt)
+
+
+def launch_gather_tokens(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: tuple):
+    """The two-phase form's phase 1 on the card: (N, V, hid) tokens in
+    maps_p's dtype, point-major (the transpose of gather_tokens_plain)."""
+    V, N, _ = xy.shape
+    _, H, W_, hid = maps_p.shape
+    dt = maps_p.dtype
+    tok = torch.empty(N, V, hid, dtype=dt, device=maps_p.device)
+    freq_t = torch.tensor(freqs, dtype=torch.float32, device=maps_p.device)
+    _lib.call(
+        "mvdf_cv_gather_tokens", xy.float().contiguous(), pts.float().contiguous(),
+        centers.float().contiguous(), mask.float().contiguous(), maps_p.contiguous(),
+        kg.kall.to(dt).contiguous(), kg.kmask.float().contiguous(),
+        freq_t, len(freqs), tok, V, N, H, W_, hid, _lib.dtype_code(dt),
+    )
+    return tok
+
+
+def launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
+                               heads: int, freqs: tuple):
+    """K4's two-phase form on the card: phase-1 tokens in maps_p's dtype,
+    GELU(tok + b_acc) into the fp32 stream, then the same DiT, pool and
+    output GEMM as the single form (no counting)."""
+    V, N, _ = xy.shape
+    hid = maps_p.shape[-1]
+    dt = maps_p.dtype
+    tok = launch_gather_tokens(xy, pts, centers, mask, maps_p, kg, freqs)
+    x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
+    _lib.call("mvdf_cv_token_gelu", tok, b_acc.to(dt).contiguous(), x, N, V, hid, _lib.dtype_code(dt))
+    return _launch_dit_pool(x, N, V, w, heads, dt)
+
+
 def crossview_aggregate(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
                         heads: int, freqs: tuple):
-    """Pooled, projected frustum features (N, out_dim): the CUDA kernels for
-    CUDA tensors, the plain version for CPU tensors."""
+    """Pooled, projected frustum features (N, out_dim) by the reference's
+    route: the CUDA kernels of that form for CUDA tensors, its plain version
+    for CPU tensors."""
+    V, H, W_, hid = maps_p.shape
+    two_phase = crossview_route(V, H, W_, hid, maps_p.dtype) == "two_phase"
     if not maps_p.is_cuda:
-        return crossview_plain(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
-    out = launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
-    _lib.LAUNCHES["crossview"] += 1
+        plain = crossview_two_phase_plain if two_phase else crossview_plain
+        return plain(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
+    if two_phase:
+        out = launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
+        _lib.LAUNCHES["crossview_two_phase"] += 1
+    else:
+        out = launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
+        _lib.LAUNCHES["crossview"] += 1
     return out

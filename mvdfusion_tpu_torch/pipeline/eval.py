@@ -1,0 +1,84 @@
+"""Scene evaluation: prepare -> eta=1 DDIM -> chunked decode (counterpart of
+mvdfusion_tpu/pipeline/eval.py::eval_scenes).
+
+The JAX package vmaps the scene pipeline and shards the scene axis over its
+mesh; on one card the scenes here run one after another. Sharding scenes
+over several cards waits for the port's data parallelism.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion
+from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
+
+
+class EvalOutput(NamedTuple):
+    pred_rgb: torch.Tensor  # (N, B, H, W, 3) in [0, 1]
+    gt_rgb: torch.Tensor  # (N, B, H, W, 3)
+    pred_depth: torch.Tensor  # (N, B, h, w, 1) in [0, 1]
+    gt_depth: torch.Tensor
+    input_depth: torch.Tensor  # (N, 1, h, w, 1)
+
+
+def _unnorm(d):
+    return torch.clamp((d + 1.0) / 2.0, 0.0, 1.0)
+
+
+@torch.no_grad()
+def eval_scenes(
+    model: ViewFusion,
+    images: torch.Tensor,  # (N, S, H, W, 3)
+    R: torch.Tensor,  # (N, S, 3, 3)
+    T: torch.Tensor,
+    f: torch.Tensor,
+    c: torch.Tensor,
+    input_idx: torch.Tensor,  # (1,) shared across scenes
+    target_idx: torch.Tensor,  # (B,)
+    cfg_scale: float,
+    num_steps: int = 50,
+    generators: Optional[Sequence[torch.Generator]] = None,  # one per scene
+    init_noise: Optional[torch.Tensor] = None,  # (N, B, h, w, C)
+    step_noise: Optional[torch.Tensor] = None,  # (N, S_steps, B, h, w, C)
+    jitter_noise: Optional[torch.Tensor] = None,  # (N, S_steps, B, h, w, D)
+    timings: Optional[list] = None,
+) -> EvalOutput:
+    """Generate the target views of N scenes and decode them beside the
+    ground truth. The noise comes from each scene's generator, or from the
+    given arrays (so a test can feed the JAX chain the same noise). If
+    `timings` is a list, each scene appends its {prepare, sample, decode}
+    seconds, synchronised on a CUDA device."""
+    sync = torch.cuda.synchronize if images.is_cuda else (lambda: None)
+    pick = lambda a, n: None if a is None else a[n]
+    outs = []
+    for n in range(images.shape[0]):
+        sync()
+        t0 = time.perf_counter()
+        batch_latents, cams, in_lat, in_cams, clip_v = model.prepare_batch(
+            images[n], R[n], T[n], f[n], c[n], input_idx, target_idx
+        )
+        sync()
+        t1 = time.perf_counter()
+        res = ddim_sample(
+            model, cams, in_lat, in_cams, clip_v, cfg_scale, num_steps=num_steps,
+            feed_prev_depth=model.cfg.feed_prev_depth,
+            init_noise=pick(init_noise, n), step_noise=pick(step_noise, n), jitter_noise=pick(jitter_noise, n),
+            generator=pick(generators, n),
+        )
+        sync()
+        t2 = time.perf_counter()
+        outs.append(EvalOutput(
+            pred_rgb=model.decode_latents_chunked(res.latents[..., :4]),
+            gt_rgb=model.decode_latents_chunked(batch_latents[..., :4]),
+            pred_depth=_unnorm(res.latents[..., 4:]),
+            gt_depth=_unnorm(batch_latents[..., 4:]),
+            input_depth=_unnorm(in_lat[..., 4:]),
+        ))
+        sync()
+        if timings is not None:
+            timings.append(dict(prepare=t1 - t0, sample=t2 - t1, decode=time.perf_counter() - t2))
+    return EvalOutput(*(torch.stack(parts) for parts in zip(*outs)))

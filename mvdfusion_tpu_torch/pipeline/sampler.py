@@ -1,7 +1,10 @@
 """eta-DDIM sampling loop (torch counterpart of mvdfusion_tpu/pipeline/sampler.py).
 
 A Python loop over the DDIM steps; each step is one `apply_model_cfg` and one
-`ddim_step`, shared timestep across views. All randomness is drawn up front
+`ddim_step`, shared timestep across views. With `feed_prev_depth`, each
+step's pred_x0 depth channel replaces the next step's GridAttn depth
+estimate; step 0, which has none yet, takes the unbiased estimate
+x_t[depth] / sqrt(abar_t) as the reference does. All randomness is drawn up front
 from an explicit torch.Generator, or passed in (`init_noise`, `step_noise`,
 `jitter_noise`) so a test can feed the JAX sampler and this one the same
 noise stream.
@@ -32,6 +35,7 @@ def ddim_sample(
     clip_v_embed: torch.Tensor,  # (B, 1, ctx + 28)
     cfg_scale: float,
     num_steps: int = 50,
+    feed_prev_depth: bool = False,
     return_trajectory: bool = False,
     init_noise: Optional[torch.Tensor] = None,  # (B, H, W, C)
     step_noise: Optional[torch.Tensor] = None,  # (S, B, H, W, C)
@@ -56,13 +60,19 @@ def ddim_sample(
     jitter_noise = jitter_noise.to(dev, torch.float32)
 
     traj = []
+    prev_depth = None
     for i in range(num_steps):
         index = num_steps - 1 - i
         t = ddim.timesteps[index].expand(B)
+        if feed_prev_depth and i == 0:
+            prev_depth = x[..., 4:5] / torch.sqrt(ddim.alphas[index])
         noise_pred = model.apply_model_cfg(
-            x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i]
+            x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i],
+            prev_depth=prev_depth,
         )
         x, pred_x0 = ddim_step(ddim, x, noise_pred, index, step_noise[i])
+        if feed_prev_depth:
+            prev_depth = pred_x0[..., 4:5]
         if return_trajectory:
             traj.append(pred_x0)
     return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj) if return_trajectory else None)

@@ -70,13 +70,9 @@ def test_gpu_k3_kernel_matches_plain(cuda, dt):
         _gpu_close(K3.launch_transformer_block(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads), dt)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_gpu_k4_kernel_matches_plain(cuda, dt):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    V, Hh, hid, L, heads, out_dim, mlp, nh = 4, 16, 256, 2, 8, 96, 512, 7
-    N, G = V * Hh * Hh, 7 * (1 + 2 * nh)
-    r = lambda *s, std=1.0, d=torch.float32: _rand(g, cuda, d, *s, std=std)
+def _k4_inputs(g, dev, dt, V, Hh, hid, L, heads, out_dim, nh=7):
+    mlp, N, G = 2 * hid, V * Hh * Hh, 7 * (1 + 2 * nh)
+    r = lambda *s, std=1.0, d=torch.float32: _rand(g, dev, d, *s, std=std)
     lin = lambda o, i: r(o, i, std=i**-0.5, d=dt)
     w = K4.AggregatorWeights(
         qkv_w=[lin(3 * hid, hid) for _ in range(L)], qkv_b=[r(3 * hid, std=0.1) for _ in range(L)],
@@ -86,6 +82,38 @@ def test_gpu_k4_kernel_matches_plain(cuda, dt):
         mods=r(L, 6, hid, std=0.5), wl_w=lin(1, hid), wl_b=r(1, std=0.1), fin_w=lin(out_dim, hid),
         fin_b=r(out_dim, std=0.1))
     kg = K4.GeoWeights(kall=r(G, hid, std=G**-0.5, d=dt), kmask=r(hid, std=0.1))
-    args = (r(V, N, 2, std=0.6), r(N, 3), r(V, 3, std=2.0), torch.ones(V, device=cuda), r(N, hid, d=dt),
+    return (r(V, N, 2, std=0.6), r(N, 3), r(V, 3, std=2.0), torch.ones(V, device=dev), r(N, hid, d=dt),
             r(V, Hh, Hh, hid, d=dt), kg, w, heads, tuple(0.1 * 2.0**i for i in range(nh)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gpu_k4_kernel_matches_plain(cuda, dt):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    args = _k4_inputs(g, cuda, dt, V=4, Hh=16, hid=256, L=2, heads=8, out_dim=96)
     _gpu_close(K4.launch_crossview(*args), K4.crossview_plain(*args), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,shape", [
+    (torch.float32, dict(V=3, Hh=8, hid=64, L=2, heads=4, out_dim=48)),
+    (torch.bfloat16, dict(V=15, Hh=32, hid=256, L=3, heads=8, out_dim=768)),  # the 15-view evaluation
+])
+def test_gpu_k4_two_phase_matches_plain(cuda, dt, shape):
+    """The two-phase form: phase-1 tokens within 1 bf16 ulp of the plain
+    tokens rounded to bf16 plus the bound on the two fp32 sums' difference
+    (crossview.gather_tokens_bound; 1e-4 in fp32), and the output within
+    GPU_TOL."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    args = _k4_inputs(g, cuda, dt, **shape)
+    geo = args[:4] + (args[5], args[6], args[9])
+    tok = K4.launch_gather_tokens(*geo).float()
+    want = K4.gather_tokens_plain(*geo).to(dt).transpose(0, 1).float()
+    if dt == torch.bfloat16:
+        ulp = (tok.abs().maximum(want.abs()).clamp_min(2.0**-126).log2().floor() - 7).exp2()
+        allow = ulp + K4.gather_tokens_bound(*geo).transpose(0, 1)
+        worst = ((tok - want).abs() / allow).max().item()
+        assert worst <= 1.0, f"phase-1 tokens differ by {worst:.3f} of 1 bf16 ulp + the sum bound"
+    else:
+        _gpu_close(tok, want, dt)
+    _gpu_close(K4.launch_crossview_two_phase(*args), K4.crossview_two_phase_plain(*args), dt)

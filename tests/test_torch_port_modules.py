@@ -261,6 +261,8 @@ def _imports(path: Path):
 def test_port_imports_no_jax(root):
     files = [REPO / root] if root.endswith(".py") else sorted((REPO / root).rglob("*.py"))
     assert files
+    if root == "mvdfusion_tpu_torch":  # every subpackage, the eval path's cli/, data/, utils/ included
+        assert {"cli", "data", "utils", "ops", "nn", "pipeline"} <= {f.parent.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
