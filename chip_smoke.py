@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--steps N] [--eval-steps N] [--profile STEPS]
+    python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
               without a CUDA device or without the package beside it
   2. build    removes any stale build directory, then builds every kernel
-              with one nvcc call; prints its seconds and ptxas' registers,
-              shared memory and spills per kernel
+              (one nvcc process a source, all started together, then one
+              link); prints its seconds and ptxas' registers, shared memory
+              and spills per kernel
   3. kernels  each hand-written kernel against its plain PyTorch version at
               the shapes of the flagship and of the eval path in bf16 (and
               at small shapes in fp32),
@@ -26,6 +27,12 @@ Phases, each printed with elapsed seconds as it starts and ends:
               steps, then utils/metrics.py; checks shapes, finiteness, the
               [0, 1] range, finite metrics, and that GridAttn took the
               two-phase K4 form on every step
+  6. forms    the same model answers 1 flagship request with the switched
+              forms of the transformer site on (MVDF_BLOCK_SINGLE=1: K5 at
+              the 32^2 sites; MVDF_BLOCK_BIGC=1: K6 at the C=1280 8^2 sites)
+              for --forms-steps steps; checks shapes, finiteness, the [0, 1]
+              range and the launch counts, then holds the latents after one
+              DDIM step against the default route's on the same noise
 The last two lines are the kernels' JSON record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
 """
@@ -53,6 +60,10 @@ REQUESTS = 2  # scenes, one seed each
 # levels) in one encode and in one decode call at 256^2
 VAE_GN_ENCODE = VAE_GN_DECODE = 11
 EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
+# the flagship UNet's transformer sites per apply_model_cfg: 8 at 32^2 (C=320),
+# 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
+# every gate)
+SITES_PER_LEVEL = 8
 ITERS = 20  # timed launches per kernel after warm-up
 
 
@@ -232,8 +243,8 @@ def kernel_checks():
         x, a2, w = site(B, N, C, dt, a2_map)
         err = compare(f"transformer_block B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
                       K3.launch_transformer_block(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
-                      rtol, "bf16 rounding at different points of 6 chained products" if dt == bf
-                      else "fp32 sum order", dt)
+                      rtol, "bf16 rounding at the same points; K2's unrounded probabilities, fp32 sums in another "
+                      "order" if dt == bf else "fp32 sum order", dt)
     ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     M, inner = B * N, 4 * C
@@ -244,6 +255,70 @@ def kernel_checks():
         source="mvdfusion_tpu_torch/csrc/block.cu (+ groupnorm.cu, attention.cu)",
         replaces="mvdfusion_tpu/ops/block.py:519", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="x (16, 1024, 320) bf16, 8 heads, attn2 row")
+
+    site_flops = lambda B, N, C: 2 * B * N * C * (6 * C + 3 * 4 * C) + 4 * B * N * N * C
+
+    # K5 one-kernel site: the 32^2 C=320 sites (attn2 row and map) at the eval
+    # path's CFG batch 30 and the flagship's 16 (timed)
+    log(" K5 transformer_block_single")
+    for dt, (B, N, C, heads, a2_map), rtol in (
+        (torch.float32, (2, 128, 64, 4, False), 1e-4),
+        (torch.float32, (2, 128, 64, 8, True), 1e-4),
+        (bf, (30, 1024, 320, 8, False), 3e-2),
+        (bf, (16, 1024, 320, 8, True), 3e-2),
+        (bf, (16, 1024, 320, 8, False), 3e-2),
+    ):
+        x, a2, w = site(B, N, C, dt, a2_map)
+        err = compare(f"transformer_block_single B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
+                      K3.launch_transformer_block_single(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
+                      rtol, "bf16 rounding at the same points; K2's unrounded probabilities, fp32 sums in another "
+                      "order" if dt == bf else "fp32 sum order", dt)
+    ms = time_ms(lambda: K3.launch_transformer_block_single(x, a2, w, heads), ITERS)
+    split_ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
+    plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
+    bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
+    K3.launch_transformer_block_single(x, a2, w, heads)
+    phases = K3.site_phase_ms(x, 4 * C)
+    log(f"  transformer_block_single: one launch {ms:.4f} ms, the split form's nine launches {split_ms:.4f} ms "
+        f"at the same shape; by phase (block 0's clock): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    rows["transformer_block_single"] = dict(
+        name="transformer_block_single", route="cuda",
+        source="mvdfusion_tpu_torch/csrc/blockforms.cu (site_kernel; gemm.cuh, attention.cuh)",
+        replaces="mvdfusion_tpu/ops/block.py:298", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape="x (16, 1024, 320) bf16, 8 heads, attn2 row")
+
+    # K6 big-C site: the C=1280 8^2 sites at CFG batch 30 (attn2 map) and 16
+    # (timed), and the 512^2 stretch's C=1280 16^2 sites (N=256); the new
+    # attention kernel alone first
+    log(" K6 transformer_block_big")
+    for dt, (B, N, C, heads, a2_map), rtol in (
+        (torch.float32, (2, 64, 128, 4, False), 1e-4),
+        (torch.float32, (2, 128, 256, 2, True), 1e-4),
+        (bf, (30, 64, 1280, 8, True), 3e-2),
+        (bf, (16, 256, 1280, 8, False), 3e-2),
+        (bf, (16, 64, 1280, 8, False), 3e-2),
+    ):
+        x, a2, w = site(B, N, C, dt, a2_map)
+        ln1 = rnd(B, N, C, dt=dt)
+        attn_err = compare(f"big attention B={B} N={N} C={C} heads={heads}", K3.launch_big_attention(ln1, w.qkv_w, heads),
+                           K3.qkv_attention_plain(ln1, w.qkv_w, heads), rtol,
+                           "q, k, v and the probabilities rounded at the same points, fp32 sums in another order", dt)
+        err = compare(f"transformer_block_big B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
+                      K3.launch_transformer_block_big(x, a2, w, heads), K3.transformer_block_big_plain(x, a2, w, heads),
+                      rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
+                      else "fp32 sum order", dt)
+    ms = time_ms(lambda: K3.launch_transformer_block_big(x, a2, w, heads), ITERS)
+    attn_ms = time_ms(lambda: K3.launch_big_attention(ln1, w.qkv_w, heads), ITERS)
+    plain_ms = time_ms(lambda: K3.transformer_block_big_plain(x, a2, w, heads), ITERS)
+    bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
+    abms, aby = bound(2 * B * N * C * 3 * C + 4 * B * N * N * C, nbytes(ln1, w.qkv_w, ln1))
+    log(f"  transformer_block_big: the attention kernel (projections + attention) {attn_ms:.4f} ms of {ms:.4f} ms, "
+        f"its bound {abms:.4f} ms ({aby}), max|err| {attn_err:.3e}")
+    rows["transformer_block_big"] = dict(
+        name="transformer_block_big", route="cuda",
+        source="mvdfusion_tpu_torch/csrc/blockforms.cu (bigattn_kernel) + block.cu + groupnorm.cu",
+        replaces="mvdfusion_tpu/ops/block.py:370", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape="x (16, 64, 1280) bf16, 8 heads, attn2 row")
 
     # K4 cross-view aggregation: V=8 views x 32^2 points, hid 256, 3 layers
     log(" K4 crossview")
@@ -340,60 +415,79 @@ def build_model(device: str = "cuda", cfg=None):
     return model
 
 
-def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: int = 0, model=None):
-    """Drive the port's main path; `device`/`cfg` let the same code be
-    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+def flagship_scene(model, dev):
+    """The flagship request's rig: 9 views on a ring at 20 degrees of
+    elevation, view 0 the input, views 1-8 the targets."""
     import numpy as np
     import torch
 
     from mvdfusion_tpu_torch.geometry.cameras import look_at_view_transform
-    from mvdfusion_tpu_torch.ops import _lib
+
+    S = 9
+    R, T = look_at_view_transform(dist=1.5, elev=20.0, azim=np.linspace(0, 360, S, endpoint=False) + 90)
+    return dict(R=torch.tensor(R, device=dev), T=torch.tensor(T, device=dev), f=torch.full((S, 2), 2.1875, device=dev),
+                c=torch.zeros(S, 2, device=dev), input_idx=torch.tensor([0], device=dev),
+                target_idx=torch.arange(1, S, device=dev))
+
+
+def answer(model, scene, steps: int, seed: int, dev):
+    """One flagship request on random images from `seed`: prepare_batch,
+    `steps` eta=1 DDIM steps at CFG 2.5, decode; checks shapes, finiteness and
+    the [0, 1] image range. Returns the latents, the prepared sampler inputs
+    and the seconds of each part."""
+    import torch
+
     from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
 
-    dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    model = model if model is not None else build_model(device, cfg)
     cfg = model.cfg
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     S, B, ls = 9, 8, cfg.latent_size
     IMG = ls * 2 ** (len(cfg.vae_ch_mult) - 1)
-    R, T = look_at_view_transform(dist=1.5, elev=20.0, azim=np.linspace(0, 360, S, endpoint=False) + 90)
-    R, T = torch.tensor(R, device=dev), torch.tensor(T, device=dev)
-    f = torch.full((S, 2), 2.1875, device=dev)
-    c = torch.zeros(S, 2, device=dev)
-    input_idx = torch.tensor([0], device=dev)
-    target_idx = torch.arange(1, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(S, IMG, IMG, 3, generator=g, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batch_latents, *prepared = model.prepare_batch(images, scene["R"], scene["T"], scene["f"], scene["c"],
+                                                       scene["input_idx"], scene["target_idx"])
+        sync()
+        t1 = time.perf_counter()
+        res = ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g)
+        sync()
+        t2 = time.perf_counter()
+        imgs = model.decode_latents(res.latents[..., :4])
+        sync()
+        t3 = time.perf_counter()
+    lat = res.latents
+    log(f"  request (seed {seed}): prepare {t1 - t0:.3f}s, {steps} steps {t2 - t1:.3f}s "
+        f"({(t2 - t1) / steps:.4f} s/step), decode {t3 - t2:.3f}s; max|latent| {lat.abs().max().item():.3f}, "
+        f"image range [{imgs.min().item():.4f}, {imgs.max().item():.4f}]")
+    check(tuple(batch_latents.shape) == (B, ls, ls, 5) and tuple(lat.shape) == (B, ls, ls, 5),
+          f"latent shape {tuple(lat.shape)}")
+    check(tuple(imgs.shape) == (B, IMG, IMG, 3), f"image shape {tuple(imgs.shape)}")
+    check(bool(torch.isfinite(lat).all() and torch.isfinite(imgs).all()), "non-finite output")
+    check(bool(imgs.min() >= 0 and imgs.max() <= 1), "images outside [0, 1]")
+    return lat, prepared, (t1 - t0, t2 - t1, t3 - t2)
 
+
+def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: int = 0, model=None):
+    """Drive the port's main path; `device`/`cfg` let the same code be
+    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+
+    dev = torch.device(device)
+    model = model if model is not None else build_model(device, cfg)
+    scene = flagship_scene(model, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     step_s, req_s = [], []
     for r in range(REQUESTS):
-        g = torch.Generator(device=dev).manual_seed(SEED + 1 + r)
-        images = torch.rand(S, IMG, IMG, 3, generator=g, device=dev)
-        sync()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            batch_latents, cams, in_lat, in_cams, clip_v = model.prepare_batch(
-                images, R, T, f, c, input_idx, target_idx)
-            sync()
-            t1 = time.perf_counter()
-            res = ddim_sample(model, cams, in_lat, in_cams, clip_v, 2.5, num_steps=steps, generator=g)
-            sync()
-            t2 = time.perf_counter()
-            imgs = model.decode_latents(res.latents[..., :4])
-            sync()
-            t3 = time.perf_counter()
-        lat = res.latents
-        log(f"  request {r}: prepare {t1 - t0:.3f}s, {steps} steps {t2 - t1:.3f}s "
-            f"({(t2 - t1) / steps:.4f} s/step), decode {t3 - t2:.3f}s; max|latent| {lat.abs().max().item():.3f}, "
-            f"image range [{imgs.min().item():.4f}, {imgs.max().item():.4f}]")
-        check(tuple(batch_latents.shape) == (B, ls, ls, 5) and tuple(lat.shape) == (B, ls, ls, 5),
-              f"latent shape {tuple(lat.shape)}")
-        check(tuple(imgs.shape) == (B, IMG, IMG, 3), f"image shape {tuple(imgs.shape)}")
-        check(bool(torch.isfinite(lat).all() and torch.isfinite(imgs).all()), "non-finite output")
-        check(bool(imgs.min() >= 0 and imgs.max() <= 1), "images outside [0, 1]")
-        step_s.append((t2 - t1) / steps)
-        req_s.append(t3 - t0)
+        _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1 + r, dev)
+        step_s.append(ts / steps)
+        req_s.append(tp + ts + td)
     counts = dict(_lib.LAUNCHES)
     if dev.type != "cuda":
         return counts
@@ -407,15 +501,18 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     want = {
         "groupnorm": REQUESTS * (steps * 55 + VAE_GN_ENCODE + VAE_GN_DECODE),
         "attention": REQUESTS * 24,
-        "transformer_block": REQUESTS * steps * 16,
+        "transformer_block": REQUESTS * steps * 2 * SITES_PER_LEVEL,
         "crossview": REQUESTS * steps,
         "crossview_two_phase": 0,
+        "transformer_block_single": 0,
+        "transformer_block_big": 0,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
     if profile:
-        profile_steps(model, (cams, in_lat, in_cams, clip_v), profile)
+        profile_steps(model, prepared, profile)
+    B = len(scene["target_idx"])
     mean = lambda a: sum(a) / len(a)
     log(f"  slice: {mean(step_s):.4f} s/step, {B / mean(req_s):.3f} views/s ({REQUESTS} requests of {B} views, "
         f"{steps} steps), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
@@ -495,6 +592,91 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
     return counts
 
 
+# ---------------------------------------------------------------- phase 6
+FORM_SWITCHES = ("MVDF_BLOCK_SINGLE", "MVDF_BLOCK_BIGC")
+
+
+def set_forms(on: bool) -> None:
+    """Switch the transformer site's one-kernel and big-C forms on or off (the
+    reference's variables, read by ops/block.py when a site runs)."""
+    import os
+
+    for var in FORM_SWITCHES:
+        if on:
+            os.environ[var] = "1"
+        else:
+            os.environ.pop(var, None)
+
+
+def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: int = 0, model=None):
+    """The flagship request with both switched forms on, then one DDIM step on
+    the same noise with the forms on and off. `device`/`cfg` let it be
+    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+    import torch
+
+    from mvdfusion_tpu_torch.core.schedule import ddim_step, make_ddim_schedule
+    from mvdfusion_tpu_torch.ops import _lib
+
+    dev = torch.device(device)
+    model = model if model is not None else build_model(device, cfg)
+    cfg = model.cfg
+    scene = flagship_scene(model, dev)
+    try:
+        set_forms(True)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1, dev)
+        counts = dict(_lib.LAUNCHES)
+        # one DDIM step (the first of a --forms-steps schedule) from the same
+        # latents and noise, forms on, then off
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        B, ls = len(scene["target_idx"]), cfg.latent_size
+        x, noise = (torch.randn(B, ls, ls, 5, generator=g, device=dev) for _ in range(2))
+        jitter = torch.randn(B, ls, ls, cfg.n_pts_per_ray, generator=g, device=dev)
+        ddim = make_ddim_schedule(cfg.timesteps, steps, cfg.linear_start, cfg.linear_end, device=dev)
+        index = steps - 1
+        after = {}
+        for on in (True, False):
+            set_forms(on)
+            with torch.no_grad():
+                eps = model.apply_model_cfg(x, *prepared, ddim.timesteps[index].expand(B), 2.5, jitter)
+                after[on] = ddim_step(ddim, x, eps, index, noise)[0]
+    finally:
+        set_forms(False)
+    step_err = compare(f"latents after one DDIM step (t={int(ddim.timesteps[index])}), forms on vs the default route",
+                       after[True], after[False], 3e-2,
+                       "bf16 rounding at other points at 16 of the 26 sites: K5 against K3 (sums in another "
+                       "order), K6 against the module path (the reference kernels' rounding points against "
+                       "flax's)", cfg.dtype)
+    if dev.type != "cuda":
+        return counts
+    # per step: K5 at the 8 32^2 sites, K6 at the 8 C=1280 8^2 sites, K3 at
+    # the 8 16^2 sites; the 8^2 site norms move into K6, so 47 UNet K1 calls
+    want = {
+        "transformer_block_single": steps * SITES_PER_LEVEL,
+        "transformer_block_big": steps * SITES_PER_LEVEL,
+        "transformer_block": steps * SITES_PER_LEVEL,
+        "groupnorm": steps * (55 - SITES_PER_LEVEL) + VAE_GN_ENCODE + VAE_GN_DECODE,
+        "attention": 24,
+        "crossview": steps,
+        "crossview_two_phase": 0,
+    }
+    log(f"  launch counts {counts}, implied {want}")
+    for k, n in want.items():
+        check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    if profile:
+        set_forms(True)
+        try:
+            profile_steps(model, prepared, profile)
+        finally:
+            set_forms(False)
+    log(f"  forms: {ts / steps:.4f} s/step, {B / (tp + ts + td):.3f} views/s (1 request of {B} views, {steps} steps), "
+        f"one-step latent gap {step_err:.3e}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"on {card}")
+    return counts
+
+
 def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
     """torch.profiler over `steps` sampling steps: device time by kernel name
     per step, and the device's busy share of the wall time."""
@@ -530,8 +712,11 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10, help="DDIM steps per request (50 is the flagship)")
     ap.add_argument("--eval-steps", type=int, default=10,
                     help="DDIM steps of the evaluation scene (50 is the paper's protocol)")
+    ap.add_argument("--forms-steps", type=int, default=5,
+                    help="DDIM steps of the request with the switched transformer-site forms on")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the checks, trace STEPS sampling steps with torch.profiler")
+                    help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
+                         "route (slice) and with the switched forms on (forms)")
     args = ap.parse_args()
 
     if not (HERE / "mvdfusion_tpu_torch" / "csrc").is_dir():
@@ -554,11 +739,12 @@ def main() -> int:
 
     from mvdfusion_tpu_torch.ops import _lib
 
+    set_forms(False)  # the slice and eval phases take the default route
     with Phase("build"):
         shutil.rmtree(_lib.BUILD_DIR, ignore_errors=True)
         info = _lib.build(force=True)
         _lib.lib()
-        log(f"  one nvcc call, {info['seconds']:.2f}s -> {info['path']}")
+        log(f"  {len(_lib._sources())} nvcc compiles in parallel and one link, {info['seconds']:.2f}s -> {info['path']}")
         for line in info["log"].splitlines():
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log("  ptxas " + line.split("ptxas info    :")[-1].strip())
@@ -581,10 +767,16 @@ def main() -> int:
                 found[mod] = "no"
         log("  modules for the demo CLI on this machine: " + ", ".join(f"{k} {v}" for k, v in found.items()))
 
+    with Phase("forms"):
+        forms_counts = run_forms(args.forms_steps, card, profile=args.profile, model=model)
+
     # launches of the phase that drives each kernel's path: the flagship
-    # slice for K1-K4, the evaluation scene for the two-phase K4
+    # slice for K1-K4, the evaluation scene for the two-phase K4, the forms
+    # request for K5 and K6
+    phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
+                "transformer_block_big": forms_counts}
     for name, r in rows.items():
-        r["launches"] = (eval_counts if name == "crossview_two_phase" else counts).get(name, 0)
+        r["launches"] = phase_of.get(name, counts).get(name, 0)
         r.pop("shape")
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -5,8 +5,10 @@ Module and parameter names follow the reference checkpoint (openaimodel's
 input_blocks / middle_block / output_blocks, ResBlock in_layers / emb_layers /
 out_layers, SpatialTransformer, and the ViewAlignedFeatureTransformer's
 aligned_attn_* names), i.e. the torch keys of convert/mapping.py's
-unet_mapping. The 32^2 and 16^2 transformer sites go through the K3 kernel
-wrapper (ops/block.py); the C=1280 sites stay plain, as in the reference.
+unet_mapping. The transformer sites take the form of ops/block.py that the
+reference takes (block_route): by default K3 at the 32^2 and 16^2 sites and
+the module path at the C=1280 sites; under MVDF_BLOCK_SINGLE=1 K5 at 32^2,
+under MVDF_BLOCK_BIGC=1 K6 at the C=1280 sites with 64 <= N <= 256.
 The up-path skip joins are concatenations: the reference's split-skip form
 computes the same function piece by piece for the TPU's layouts.
 """
@@ -29,7 +31,7 @@ from mvdfusion_tpu_torch.nn.layers import (
     silu,
     timestep_embedding,
 )
-from mvdfusion_tpu_torch.ops.block import BlockWeights, should_fuse_block, transformer_block
+from mvdfusion_tpu_torch.ops.block import BlockWeights, block_route, transformer_block
 from mvdfusion_tpu_torch.ops.image import area_downsample, nearest_upsample2x
 
 
@@ -84,6 +86,14 @@ def _attn2_contribution(block: BasicTransformerBlock, ctx):
     return block.attn2.to_out[0](block.attn2.to_v(ctx))
 
 
+def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int):
+    """The kernel form of a site with one transformer block and a 1-key
+    attn2 context, or None for the module path."""
+    if len(blocks) != 1 or not one_key:
+        return None
+    return block_route(B, N, C, heads, blocks[0].ff.net[2].in_features)
+
+
 def _site_weights(norm, proj_in, proj_out, block: BasicTransformerBlock) -> BlockWeights:
     a1, ff = block.attn1, block.ff
     mat = lambda m: m.weight.reshape(m.weight.shape[0], -1)  # Linear or 1x1 conv
@@ -117,11 +127,12 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context):
         B, H, W, C = x.shape
         blk = self.transformer_blocks
-        if len(blk) == 1 and context.shape[1] == 1 and should_fuse_block(C, H * W, self.heads):
+        form = _site_form(blk, context.shape[1] == 1, B, H * W, C, self.heads)
+        if form:
             a2 = _attn2_contribution(blk[0], context[:, 0])
             w = _site_weights(self.norm, self.proj_in, self.proj_out, blk[0])
             dt = self.proj_in.weight.dtype
-            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads).reshape(B, H, W, C)
+            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads, form).reshape(B, H, W, C)
         h = self.proj_in(self.norm(x)).reshape(B, H * W, -1)
         for b in blk:
             h = b(h, context)
@@ -148,11 +159,12 @@ class ViewAlignedFeatureTransformer(nn.Module):
         B, H, W, C = x.shape
         D, Cc = volume.shape[3], volume.shape[4]
         blk = self.aligned_attn_transformer_blocks
-        if len(blk) == 1 and D == 1 and should_fuse_block(C, H * W, self.heads):
+        form = _site_form(blk, D == 1, B, H * W, C, self.heads)
+        if form:
             a2 = _attn2_contribution(blk[0], volume.reshape(B, H * W, Cc))
             w = _site_weights(self.aligned_attn_norm, self.aligned_attn_proj_in, self.aligned_attn_proj_out, blk[0])
             dt = self.aligned_attn_proj_in.weight.dtype
-            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads).reshape(B, H, W, C)
+            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads, form).reshape(B, H, W, C)
         ctx = volume.reshape(B * H * W, D, Cc)
         h = self.aligned_attn_proj_in(self.aligned_attn_norm(x).reshape(B, H * W, C))
         for b in blk:

@@ -19,6 +19,8 @@ view_attn_efficient2.py (z_embedder.0, pre_layer_b.0, aggregation_transformer
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -91,6 +93,16 @@ class GridAttn(nn.Module):
         w = self.part_weight(i)
         return (x.to(w.dtype).float() @ w.float().t()).to(w.dtype)
 
+    def _z_embed(self, a):
+        """z_embedder then the exact GELU, rounded to the weight's dtype where
+        the reference's Dense(dtype) and jax.nn.gelu round, op by op: the
+        product, then the bias add; GELU as (0.5 x) * erfc(-x * sqrt(1/2)),
+        sqrt(1/2), each product and the erfc in that dtype."""
+        lin = self.z_embedder[0]
+        dt = lin.weight.dtype
+        y = (a.to(dt).float() @ lin.weight.float().t()).to(dt) + lin.bias.to(dt)
+        return (0.5 * y) * torch.special.erfc(-y * torch.tensor(math.sqrt(0.5), dtype=dt))
+
     def kernel_weights(self, t_embed0: torch.Tensor):
         """K4's operands from this module's params: the geometric rows `kall`
         in the kernel's [raw | sin freq-major | cos] order, and the DiT
@@ -156,9 +168,8 @@ class GridAttn(nn.Module):
         N = B * H * W * D
 
         # 3. embedded latents, pre-projected by their pre_layer_b slices
-        z_embed = lambda a: F.gelu(self.z_embedder[0](a))
-        view_feat_p = self._part(0, z_embed(noisy_latents))  # (V, H, W, hid)
-        input_feat_p = self._part(1, z_embed(input_latents))  # (1, H, W, hid)
+        view_feat_p = self._part(0, self._z_embed(noisy_latents))  # (V, H, W, hid)
+        input_feat_p = self._part(1, self._z_embed(input_latents))  # (1, H, W, hid)
         ndc_all = transform_points_ndc(batch_cameras, pts_flat)  # (V, N, 3)
         ndc_in = transform_points_ndc(input_cameras, pts_flat)  # (1, N, 3)
 

@@ -1,8 +1,9 @@
 """Build, load and call the port's CUDA kernels.
 
-All sources in ``mvdfusion_tpu_torch/csrc/*.cu`` are compiled by ONE ``nvcc``
-call into one shared library with a plain C interface (no PyTorch header, so
-the build takes seconds), loaded with ``ctypes``. The library goes to
+Each source in ``mvdfusion_tpu_torch/csrc/*.cu`` is compiled by its own
+``nvcc`` process, all started together, and one more ``nvcc`` call links the
+objects into one shared library with a plain C interface (no PyTorch header,
+so the build takes seconds), loaded with ``ctypes``. The library goes to
 ``build/mvdfusion_tpu_torch/`` beside the package at first use, and is
 rebuilt when any source is newer than it. Every entry point takes raw device
 pointers and the current CUDA stream and returns ``cudaGetLastError()``;
@@ -28,10 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvdfusion_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmvdf_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -40,7 +39,9 @@ _SIGNATURES = {
     "mvdf_groupnorm": "ppppiiiifiip",
     "mvdf_attention": "ppppiiiiillllllllfip",
     "mvdf_layernorm": "pipppiiifp",
-    "mvdf_gemm": "ppppipipiipiiiiip",
+    "mvdf_gemm": "ppppipipiipiiiiiip",
+    "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "iiiii" + "ff" + "ip",
+    "mvdf_big_attention": "pppiiiifip",
     "mvdf_cv_gather": "pppppppppipiiiiiip",
     "mvdf_cv_gather_tokens": "ppppppppipiiiiiip",
     "mvdf_cv_token_gelu": "pppiiiip",
@@ -80,22 +81,41 @@ def _stale() -> bool:
 
 
 def build(force: bool = False) -> dict:
-    """Compile every csrc/*.cu into LIB_PATH with one nvcc call (if stale).
-    Returns {"seconds", "log", "path", "built"}; the log holds -Xptxas -v's
-    per-kernel registers, shared memory and spills."""
+    """Compile every csrc/*.cu (one nvcc process each, in parallel) and link
+    them into LIB_PATH (if stale). Returns {"seconds", "log", "path",
+    "built"}; the log holds -Xptxas -v's per-kernel registers, shared memory
+    and spills."""
     if not force and not _stale():
         return {"seconds": 0.0, "log": "", "path": str(LIB_PATH), "built": False}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libmvdf_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = nvcc_path(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = BUILD_DIR / f".libmvdf_kernels.{tag}.so"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    log = "".join(logs)
+    (BUILD_DIR / "build.log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-6000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-6000:] for f in failed))
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new, never half
     return {"seconds": seconds, "log": log, "path": str(LIB_PATH), "built": True}
 

@@ -54,20 +54,54 @@ def test_gpu_k1_k2_kernels_match_plain(cuda, dt):
         _gpu_close(K2.launch_attention(q, k, v, shape[-1] ** -0.5), K2.attention_plain(q, k, v, shape[-1] ** -0.5), dt)
 
 
+def _site_weights(g, dev, dt, C):
+    lin = lambda o, i: _rand(g, dev, dt, o, i, std=i**-0.5)
+    vec = lambda n: _rand(g, dev, torch.float32, n, std=0.1)
+    return K3.BlockWeights(
+        gn_w=1 + vec(C), gn_b=vec(C), pi_w=lin(C, C), pi_b=vec(C), ln1_w=1 + vec(C), ln1_b=vec(C),
+        qkv_w=lin(3 * C, C), out_w=lin(C, C), out_b=vec(C), ln3_w=1 + vec(C), ln3_b=vec(C),
+        g_w=lin(8 * C, C), g_b=vec(8 * C), f_w=lin(C, 4 * C), f_b=vec(C), po_w=lin(C, C), po_b=vec(C))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gpu_k3_kernel_matches_plain(cuda, dt):
     g = torch.Generator(device=cuda).manual_seed(1)
     B, N, C, heads = 2, 256, 320, 8
-    lin = lambda o, i: _rand(g, cuda, dt, o, i, std=i**-0.5)
-    vec = lambda n: _rand(g, cuda, torch.float32, n, std=0.1)
-    w = K3.BlockWeights(
-        gn_w=1 + vec(C), gn_b=vec(C), pi_w=lin(C, C), pi_b=vec(C), ln1_w=1 + vec(C), ln1_b=vec(C),
-        qkv_w=lin(3 * C, C), out_w=lin(C, C), out_b=vec(C), ln3_w=1 + vec(C), ln3_b=vec(C),
-        g_w=lin(8 * C, C), g_b=vec(8 * C), f_w=lin(C, 4 * C), f_b=vec(C), po_w=lin(C, C), po_b=vec(C))
+    w = _site_weights(g, cuda, dt, C)
     x = _rand(g, cuda, dt, B, N, C)
     for a2 in (_rand(g, cuda, dt, B, C), _rand(g, cuda, dt, B, N, C)):
         _gpu_close(K3.launch_transformer_block(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gpu_k5_kernel_matches_plain(cuda, dt):
+    """The one-kernel site at a 32^2 C=320 site (B=2) and a small ragged one
+    (N=96: partial GEMM and attention tiles), attn2 row and map."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for B, N, C, heads in ((2, 1024, 320, 8), (3, 96, 64, 4)):
+        w = _site_weights(g, cuda, dt, C)
+        x = _rand(g, cuda, dt, B, N, C)
+        for a2 in (_rand(g, cuda, dt, B, C), _rand(g, cuda, dt, B, N, C)):
+            _gpu_close(K3.launch_transformer_block_single(x, a2, w, heads),
+                       K3.transformer_block_plain(x, a2, w, heads), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,C,heads", [(torch.float32, 256, 4), (torch.bfloat16, 1280, 8)])
+def test_gpu_k6_kernel_matches_plain(cuda, dt, C, heads):
+    """The big-C site and its attention kernel alone at N=64 and N=256 (the
+    512^2 stretch's C=1280 16^2 sites), attn2 row and map."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = _site_weights(g, cuda, dt, C)
+    for B, N in ((3, 64), (2, 256)):
+        ln1 = _rand(g, cuda, dt, B, N, C)
+        _gpu_close(K3.launch_big_attention(ln1, w.qkv_w, heads), K3.qkv_attention_plain(ln1, w.qkv_w, heads), dt)
+        x = _rand(g, cuda, dt, B, N, C)
+        for a2 in (_rand(g, cuda, dt, B, C), _rand(g, cuda, dt, B, N, C)):
+            _gpu_close(K3.launch_transformer_block_big(x, a2, w, heads),
+                       K3.transformer_block_big_plain(x, a2, w, heads), dt)
 
 
 def _k4_inputs(g, dev, dt, V, Hh, hid, L, heads, out_dim, nh=7):
