@@ -33,7 +33,18 @@ Phases, each printed with elapsed seconds as it starts and ends:
               for --forms-steps steps; checks shapes, finiteness, the [0, 1]
               range and the launch counts, then holds the latents after one
               DDIM step against the default route's on the same noise
-The last two lines are the kernels' JSON record and {"ok": true, "device": ...}.
+  7. vae      the same model's VAE with the reference's switched forms
+              (MVDF_GN_TILED=1: the tiled GroupNorm K7 on maps above 2^20
+              elements an image; MVDF_CONV3X3=1: the fused GN + SiLU + conv
+              K8 in the ResBlocks of maps of at least 64^2): the encode of the
+              flagship's 9 images and the decode of 8 latents on the default
+              route, with MVDF_GN_TILED=1 alone and with both, then the eval
+              path's chunked decode of 15 views (chunks of 8 and 7) with both;
+              checks shapes, finiteness, the [0, 1] range and the launch
+              counts, and holds each switched result against the default
+              route's
+The last three lines are the card's name and power limit, the kernels' JSON
+record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
 """
 
@@ -59,12 +70,26 @@ REQUESTS = 2  # scenes, one seed each
 # VAE GroupNorms whose (HW, C) slice passes K1's gate (HW*C <= 2^20: the 32^2
 # levels) in one encode and in one decode call at 256^2
 VAE_GN_ENCODE = VAE_GN_DECODE = 11
+# the VAE's launches at 256^2 by route (phase 7; PERF.md, Findings): with
+# MVDF_GN_TILED=1 the GroupNorms of larger maps take K7; with MVDF_CONV3X3=1
+# too, the ResBlocks at 64^2..256^2 (6 in the encoder, 9 in the decoder) take
+# K8 (2 folds, 2 convs each) and the encoder's 64^2 x 256 norm1 (K1) goes with
+# them; the decoder's 256^2 norm_out stays on K7
+VAE_LAUNCHES = {
+    "default": {"encode": {"groupnorm": 11}, "decode": {"groupnorm": 11}},
+    "gn_tiled": {"encode": {"groupnorm": 11, "groupnorm_tiled": 11},
+                 "decode": {"groupnorm": 11, "groupnorm_tiled": 19}},
+    "both": {"encode": {"groupnorm": 10, "gn_fold_affine": 12, "conv3x3": 12},
+             "decode": {"groupnorm": 11, "groupnorm_tiled": 1, "gn_fold_affine": 18, "conv3x3": 18}},
+}
+VAE_KERNELS = ("groupnorm", "groupnorm_tiled", "gn_fold_affine", "conv3x3", "attention")
 EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
 # the flagship UNet's transformer sites per apply_model_cfg: 8 at 32^2 (C=320),
 # 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
 # every gate)
 SITES_PER_LEVEL = 8
 ITERS = 20  # timed launches per kernel after warm-up
+VAE_ITERS = 5  # timed encode and decode calls per VAE route after one warm-up
 
 
 def log(msg: str) -> None:
@@ -128,6 +153,19 @@ def compare(name, got, want, rtol: float, why: str, dtype) -> float:
     ok = math.isfinite(err) and err <= rtol * scale
     log(f"  {name} [{dtype}]: max|kernel - plain| = {err:.3e}, tolerance {rtol:g} x max(1, max|plain|) "
         f"= {rtol * scale:.3e} ({why}) -> {'ok' if ok else 'MISS'}")
+    check(ok, f"{name}: kernel disagrees with its plain version ({err:.3e})")
+    return err
+
+
+def compare_ulp(name, got, want, why: str) -> float:
+    """bf16: |kernel - plain| <= 1 bf16 ulp of max|plain| (each side rounds
+    its fp32 result once; the fp32 results differ by far less than an ulp)."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    ok = math.isfinite(err) and err <= ulp
+    log(f"  {name} [bf16]: max|kernel - plain| = {err:.3e}, tolerance 1 bf16 ulp of max|plain| {top:.3e} = "
+        f"{ulp:.3e} ({why}) -> {'ok' if ok else 'MISS'}")
     check(ok, f"{name}: kernel disagrees with its plain version ({err:.3e})")
     return err
 
@@ -393,10 +431,120 @@ def kernel_checks():
         replaces="mvdfusion_tpu/ops/crossview.py:404", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None,
         shape="V=15, N=15360, hid 256, 3 layers, 8 heads, out 768, bf16")
+    rows.update(vae_kernel_checks(rnd))
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms at {r['shape']}")
+    return rows
+
+
+def vae_kernel_checks(rnd):
+    """K7 and K8 against their plain versions at the VAE's shapes in bf16 (and
+    small ragged shapes in fp32), timed at the decoder's largest maps."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvdfusion_tpu_torch.ops import conv3x3 as K8
+    from mvdfusion_tpu_torch.ops import groupnorm as K1
+
+    bf = torch.bfloat16
+    rows = {}
+    why = lambda dt: ("fp32 statistics on both sides, sums in another order; bf16 output rounding" if dt == bf
+                      else "fp32 sum order")
+
+    # K7 tiled GroupNorm: a ragged last row tile in fp32; the encoder's
+    # 128^2 x 256 maps (B=9), the decoder's 64^2 x 512 and its 256^2 x 128
+    # norm_out (timed, act none as K1's row)
+    log(" K7 groupnorm_tiled")
+    err = 0.0
+    for dt, shape in ((torch.float32, (2, 3000, 96)), (bf, (9, 16384, 256)), (bf, (8, 4096, 512)),
+                      (bf, (8, 65536, 128))):
+        x = rnd(*shape, dt=dt) * 3 + 1
+        w, b = 1 + rnd(shape[-1], std=0.1), rnd(shape[-1], std=0.1)
+        for act in ("silu", "none"):
+            name = f"groupnorm_tiled {shape} act={act}"
+            got = K1.launch_group_norm_tiled(x, w, b, 32, 1e-6, act)
+            want = K1.group_norm_tiled_plain(x, w, b, 32, 1e-6, act)
+            err = max(err, compare_ulp(name, got, want, why(dt)) if dt == bf
+                      else compare(name, got, want, 1e-4, why(dt), dt))
+    ms = time_ms(lambda: K1.launch_group_norm_tiled(x, w, b, 32, 1e-6), ITERS)
+    stats_ms = time_ms(lambda: K1.launch_fold(x, w, b, 32, 1e-6, True), ITERS)
+    a, sh = K1.launch_fold(x, w, b, 32, 1e-6, True)
+    apply_ms = time_ms(lambda: K1.launch_apply_affine(x, a, sh), ITERS)
+    plain_ms = time_ms(lambda: K1.group_norm_tiled_plain(x, w, b, 32, 1e-6), ITERS)
+    lib_ms = time_ms(lambda: F.group_norm(x.transpose(1, 2), 32, w.to(bf), b.to(bf), 1e-6), ITERS)
+    bms, by = bound(10 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
+    log(f"  groupnorm_tiled: stats pass with the fold {stats_ms:.4f} ms, apply pass {apply_ms:.4f} ms, of {ms:.4f} ms; "
+        f"the two passes' own floor (two reads and one write of x) {3 * nbytes(x) / PEAK_BYTES * 1e3:.4f} ms")
+    rows["groupnorm_tiled"] = dict(
+        name="groupnorm_tiled", route="cuda",
+        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_partial_kernel, gn_fold_kernel, "
+               "gn_apply_kernel)",
+        replaces="mvdfusion_tpu/ops/groupnorm.py:104", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms, shape="x (8, 65536, 128) bf16, 32 groups, eps 1e-6 (the decoder's norm_out)")
+
+    # K8 statistics: the eval chunk's 128^2 x 512 (B=7) and the decoder's
+    # 256^2 x 256 (timed); the fold's outputs are fp32 on both sides
+    log(" K8 gn_fold_affine")
+    err = 0.0
+    for dt, shape in ((torch.float32, (2, 3000, 96)), (bf, (7, 16384, 512)), (bf, (8, 65536, 256))):
+        x = rnd(*shape, dt=dt) * 3 + 1
+        w, b = 1 + rnd(shape[-1], std=0.1), rnd(shape[-1], std=0.1)
+        (ka, kb), (pa, pb) = K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), K8.gn_fold_affine_plain(x, w, b, 32, 1e-6)
+        err = max(err, compare(f"gn_fold_affine {shape} a", ka, pa, 1e-4, "fp32 sums in another order", dt),
+                  compare(f"gn_fold_affine {shape} b", kb, pb, 1e-4, "fp32 sums in another order", dt))
+    ms = time_ms(lambda: K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), ITERS)
+    plain_ms = time_ms(lambda: K8.gn_fold_affine_plain(x, w, b, 32, 1e-6), ITERS)
+    bms, by = bound(3 * x.numel(), nbytes(x, w, b, ka, kb))
+    rows["gn_fold_affine"] = dict(
+        name="gn_fold_affine", route="cuda",
+        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_partial_kernel, gn_fold_kernel)",
+        replaces="mvdfusion_tpu/ops/conv3x3.py:62", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape="x (8, 65536, 256) bf16, 32 groups")
+
+    # K8 conv: ragged tiles in fp32 (TX 32 x TR 4 over 20 x 40; TX 128 over
+    # W = 136, odd H, Cout 8), the eval chunk's 64^2 x 512 with a residual,
+    # the decoder's 64^2 x 512 and its 256^2 256 -> 128 with the nin residual
+    # (timed)
+    log(" K8 conv3x3")
+    err = 0.0
+
+    def conv_inputs(B, H, W, Cin, Cout, dt, with_res):
+        x = rnd(B, H, W, Cin, dt=dt)
+        a, b = 1 + rnd(B, Cin, std=0.3), rnd(B, Cin, std=0.2)
+        w = rnd(Cout, Cin, 3, 3, std=(9 * Cin) ** -0.5, dt=dt)
+        res = rnd(B, H, W, Cout, dt=dt) if with_res else None
+        return x, a, b, w, rnd(Cout, std=0.1), rnd(B, Cout, std=0.1), res
+
+    conv_flops = lambda x, w: 2 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[0] * w.shape[1] * 9
+    for dt, shape, rtol in ((torch.float32, (2, 20, 40, 32, 64, True), 1e-4),
+                            (torch.float32, (3, 13, 136, 64, 8, False), 1e-4),
+                            (bf, (7, 64, 64, 512, 512, True), 3e-2), (bf, (8, 64, 64, 512, 512, False), 3e-2),
+                            (bf, (8, 256, 256, 256, 128, True), 3e-2)):
+        x, a, b, w, bias, row, res = args = conv_inputs(*shape[:5], dt, shape[5])
+        w9 = K8.pack_weight(w, dt)
+        err = max(err, compare(f"conv3x3 {shape[:4]} -> {shape[4]}{' + res' if res is not None else ''}",
+                               K8.launch_conv3x3(x, a, b, w9, bias, row, res), K8.conv3x3_plain(*args), rtol,
+                               "bf16 operands rounded at the same point, fp32 sums in another order" if dt == bf
+                               else "fp32 sum order", dt))
+        if shape == (8, 64, 64, 512, 512, False):
+            ms64 = time_ms(lambda: K8.launch_conv3x3(x, a, b, w9, bias, row, res), ITERS)
+            b64 = bound(conv_flops(x, w), 2 * nbytes(x) + nbytes(w9))[0]
+            log(f"  conv3x3 (8, 64, 64, 512 -> 512): {ms64:.4f} ms, {conv_flops(x, w) / ms64 / 1e9:.1f} TFLOP/s, "
+                f"bound {b64:.4f} ms")
+    ms = time_ms(lambda: K8.launch_conv3x3(x, a, b, w9, bias, row, res), ITERS)
+    plain_ms = time_ms(lambda: K8.conv3x3_plain(*args), max(2, ITERS // 4))
+    xn, wn = x.permute(0, 3, 1, 2), w.contiguous(memory_format=torch.channels_last)
+    lib_ms = time_ms(lambda: F.conv2d(xn, wn, bias.to(bf), padding=1), ITERS)
+    flops = conv_flops(x, w)
+    bms, by = bound(flops, nbytes(x, res, w9, a, b, bias, row) + x.numel() // x.shape[-1] * w.shape[0] * 2)
+    log(f"  conv3x3: {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s; the library yardstick is F.conv2d "
+        f"(cuDNN, channels-last bf16) + bias without the prologue and residual")
+    rows["conv3x3"] = dict(
+        name="conv3x3", route="cuda", source="mvdfusion_tpu_torch/csrc/conv3x3.cu",
+        replaces="mvdfusion_tpu/ops/conv3x3.py:95", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms, shape="x (8, 256, 256, 256) bf16 -> 128 channels, + residual")
     return rows
 
 
@@ -677,6 +825,124 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     return counts
 
 
+# ---------------------------------------------------------------- phase 7
+VAE_SWITCHES = ("MVDF_GN_TILED", "MVDF_CONV3X3")
+VAE_ROUTES = {"default": (False, False), "gn_tiled": (True, False), "both": (True, True)}
+
+
+def set_vae_forms(gn_tiled: bool, conv: bool) -> None:
+    """Switch the VAE's tiled GroupNorm and fused conv on or off (the
+    reference's variables, read by ops/groupnorm.py and ops/conv3x3.py when a
+    GroupNorm or a ResBlock runs)."""
+    import os
+
+    for var, on in zip(VAE_SWITCHES, (gn_tiled, conv)):
+        if on:
+            os.environ[var] = "1"
+        else:
+            os.environ.pop(var, None)
+
+
+def run_vae(card: str, device: str = "cuda", cfg=None, model=None):
+    """The VAE on each route: encode of the flagship's 9 images, decode of 8
+    latents, and with both forms on the eval path's chunked decode of 15
+    views; every switched result against the default route's on the same
+    inputs. Returns the launches of the whole phase. `device`/`cfg` let it be
+    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+    import collections
+
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+
+    dev = torch.device(device)
+    model = model if model is not None else build_model(device, cfg)
+    cfg = model.cfg
+    ls = cfg.latent_size
+    IMG = ls * 2 ** (len(cfg.vae_ch_mult) - 1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    images = torch.rand(9, IMG, IMG, 3, generator=g, device=dev)
+    z = torch.randn(8, ls, ls, 4, generator=g, device=dev)
+    z15 = torch.randn(EVAL_TARGETS, ls, ls, 4, generator=g, device=dev)
+    total, out, counts, secs = collections.Counter(), {}, {}, {}
+
+    def run(key, fn, *a):
+        _lib.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[key] = fn(*a)
+        sync()
+        secs[key] = time.perf_counter() - t0
+        counts[key] = dict(_lib.LAUNCHES)
+        total.update(_lib.LAUNCHES)
+
+    try:
+        for route, switches in VAE_ROUTES.items():
+            set_vae_forms(*switches)
+            run((route, "encode"), model.encode_images, images)
+            run((route, "decode"), model.decode_latents, z)
+            if route != "gn_tiled":
+                run((route, "decode_15"), model.decode_latents_chunked, z15)
+    finally:
+        set_vae_forms(False, False)
+    for (route, what), t in secs.items():
+        log(f"  vae {route}: {what} {t:.4f}s, launches {counts[(route, what)]}")
+    for key, o in out.items():
+        n = 15 if key[1] == "decode_15" else (9 if key[1] == "encode" else 8)
+        want = (n, ls, ls, 4) if key[1] == "encode" else (n, IMG, IMG, 3)
+        check(tuple(o.shape) == want, f"{key}: shape {tuple(o.shape)}, expected {want}")
+        check(bool(torch.isfinite(o).all()), f"{key}: non-finite output")
+        if key[1] != "encode":
+            check(bool(o.min() >= 0 and o.max() <= 1), f"{key}: images outside [0, 1]")
+    gaps = {}
+    for key, o in out.items():
+        if key[0] != "default":
+            gaps[key] = compare(f"vae {key[1]}, {key[0]} vs the default route", o, out[("default", key[1])], 3e-2,
+                                "bf16 rounding at other points: K7's folded affine, K8's single rounding after "
+                                "conv + bias + residual", cfg.dtype)
+    if dev.type != "cuda":
+        return {}
+    chunks = -(-EVAL_TARGETS // 8)  # decode_latents_chunked's chunks of 8
+    for (route, what), launched in counts.items():
+        per_decode = VAE_LAUNCHES[route]["decode" if what == "decode_15" else what]
+        want = {k: per_decode.get(k, 0) * (chunks if what == "decode_15" else 1) for k in VAE_KERNELS}
+        got = {k: launched.get(k, 0) for k in VAE_KERNELS}
+        check(got == want, f"vae {route} {what}: launches {got}, the path implies {want}")
+    log(f"  vae: largest gap to the default route {max(gaps.values()):.3e}, on {card}")
+    vae_route_times(model, images, z, card)
+    return dict(total)
+
+
+def vae_route_times(model, images, z, card: str) -> None:
+    """Host time of encode (9 images) and decode (8 latents) per VAE route:
+    one warm-up call (with both forms on, the call that packs each conv
+    weight, so packing is excluded), then VAE_ITERS calls, each timed alone
+    between device syncs; logs the median and the spread."""
+    import statistics
+
+    import torch
+
+    try:
+        for route, switches in VAE_ROUTES.items():
+            set_vae_forms(*switches)
+            for what, fn, arg in (("encode", model.encode_images, images), ("decode", model.decode_latents, z)):
+                ts = []
+                with torch.no_grad():
+                    fn(arg)
+                    for _ in range(VAE_ITERS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn(arg)
+                        torch.cuda.synchronize()
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                log(f"  vae {route} {what}: median {statistics.median(ts):.4f} ms, min {min(ts):.4f}, "
+                    f"max {max(ts):.4f} over {VAE_ITERS} calls after one warm-up, on {card}")
+    finally:
+        set_vae_forms(False, False)
+
+
 def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
     """torch.profiler over `steps` sampling steps: device time by kernel name
     per step, and the device's busy share of the wall time."""
@@ -740,6 +1006,7 @@ def main() -> int:
     from mvdfusion_tpu_torch.ops import _lib
 
     set_forms(False)  # the slice and eval phases take the default route
+    set_vae_forms(False, False)
     with Phase("build"):
         shutil.rmtree(_lib.BUILD_DIR, ignore_errors=True)
         info = _lib.build(force=True)
@@ -770,11 +1037,15 @@ def main() -> int:
     with Phase("forms"):
         forms_counts = run_forms(args.forms_steps, card, profile=args.profile, model=model)
 
+    with Phase("vae"):
+        vae_counts = run_vae(card, model=model)
+
     # launches of the phase that drives each kernel's path: the flagship
     # slice for K1-K4, the evaluation scene for the two-phase K4, the forms
-    # request for K5 and K6
+    # request for K5 and K6, the VAE phase for K7 and K8
     phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
-                "transformer_block_big": forms_counts}
+                "transformer_block_big": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
+                "conv3x3": vae_counts}
     for name, r in rows.items():
         r["launches"] = phase_of.get(name, counts).get(name, 0)
         r.pop("shape")

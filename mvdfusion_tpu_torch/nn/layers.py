@@ -41,7 +41,9 @@ class Linear(nn.Linear):
 
 class Conv1x1(nn.Module):
     """A torch 1x1 Conv2d's parameters ((out, in, 1, 1) weight), applied to
-    channels-last input as a per-token linear map."""
+    channels-last input as a per-token linear map. Below fp32 it rounds where
+    the reference's flax Dense(dtype) rounds: the product, then the bias add
+    in the weight's dtype."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -50,7 +52,10 @@ class Conv1x1(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight[:, :, 0, 0], self.bias)
+        w = self.weight[:, :, 0, 0]
+        if w.dtype == torch.float32:
+            return F.linear(x.float(), w, self.bias)
+        return F.linear(x.to(w.dtype), w) + self.bias.to(w.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -64,7 +69,10 @@ class Conv2d(nn.Conv2d):
 
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in fp32 over NHWC input, optional fused SiLU. Gated
-    slices go through the K1 kernel wrapper (ops/groupnorm.py)."""
+    maps go through ops/groupnorm.py's wrapper: K1 for slices of at most 2^20
+    elements, the tiled K7 for larger maps under MVDF_GN_TILED=1 (the VAE's
+    64^2..256^2 maps; the decoder's 256^2 norm_out also with the fused convs
+    on)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, act: str = "none"):
         super().__init__()

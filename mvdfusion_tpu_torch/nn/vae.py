@@ -4,20 +4,35 @@ encode takes the posterior mode (the mean half of the moments); the
 downsample pads (0, 1, 0, 1) then convolves with stride 2; the decoder uses
 plain fp32 GroupNorm. Names follow the reference's encoder.down.{l}.block.{i},
 mid.block_1 / attn_1 / block_2, decoder.up.{l}, quant_conv, post_quant_conv.
+
+The reference's two switched VAE forms are honoured, both off by default:
+MVDF_GN_TILED=1 sends the GroupNorms of maps above 2^20 elements an image
+through the tiled form (ops/groupnorm.py, K7); MVDF_CONV3X3=1 sends the
+ResBlocks of maps of at least 64^2 through the fused conv (ops/conv3x3.py, K8).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdfusion_tpu_torch.nn.layers import Conv1x1, Conv2d, GroupNorm32, dot_attention
+from mvdfusion_tpu_torch.ops import conv3x3
 from mvdfusion_tpu_torch.ops.image import nearest_upsample2x
 
 
 class VAEResnetBlock(nn.Module):
+    """GroupNorm32+SiLU -> conv -> GroupNorm32+SiLU -> conv, + x (or its 1x1
+    nin_shortcut). Where the reference's gate passes on the input and the
+    output map (MVDF_CONV3X3=1, ops/conv3x3.py) it takes the fused branch of
+    the reference (mvdfusion_tpu/nn/vae.py:68-85): a folded-GN statistics pass
+    and one fused GN-affine + SiLU + conv kernel per conv, the residual added
+    in the second conv's epilogue. The gate is called through the module
+    (conv3x3.should_fuse_conv3x3) so that a test can patch it."""
+
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.norm1 = GroupNorm32(cin, eps=1e-6, act="silu")
@@ -27,8 +42,18 @@ class VAEResnetBlock(nn.Module):
         self.nin_shortcut = Conv1x1(cin, cout) if cin != cout else None
 
     def forward(self, x):
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
-        return (self.nin_shortcut(x) if self.nin_shortcut is not None else x) + h
+        B, H, W, _ = x.shape
+        cout = self.conv1.out_channels
+        if not (conv3x3.should_fuse_conv3x3(x.shape) and conv3x3.should_fuse_conv3x3((B, H, W, cout))):
+            h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+            return (self.nin_shortcut(x) if self.nin_shortcut is not None else x) + h
+        dt = self.conv1.weight.dtype
+        zrow = torch.zeros(B, cout, dtype=torch.float32, device=x.device)
+        a1, b1 = conv3x3.gn_fold_affine(x.reshape(B, H * W, -1), self.norm1.weight, self.norm1.bias, 32, 1e-6)
+        h = conv3x3.gn_silu_conv3x3(x.to(dt), a1, b1, self.conv1.weight, self.conv1.bias, zrow, None)
+        a2, b2 = conv3x3.gn_fold_affine(h.reshape(B, H * W, -1), self.norm2.weight, self.norm2.bias, 32, 1e-6)
+        res = self.nin_shortcut(x) if self.nin_shortcut is not None else x.to(dt)
+        return conv3x3.gn_silu_conv3x3(h, a2, b2, self.conv2.weight, self.conv2.bias, zrow, res)
 
 
 class VAEAttnBlock(nn.Module):

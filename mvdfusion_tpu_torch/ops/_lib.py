@@ -37,6 +37,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 # entry point -> argument kinds: p pointer, i int32, l int64, f float32
 _SIGNATURES = {
     "mvdf_groupnorm": "ppppiiiifiip",
+    "mvdf_gn_stats": "pppppp" + "iiiii" + "f" + "ii" + "p",
+    "mvdf_gn_apply": "ppppiiiiip",
+    "mvdf_conv3x3": "pppppppp" + "iiiiiii" + "p",
     "mvdf_attention": "ppppiiiiillllllllfip",
     "mvdf_layernorm": "pipppiiifp",
     "mvdf_gemm": "ppppipipiipiiiiiip",

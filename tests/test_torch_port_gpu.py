@@ -16,6 +16,7 @@ import torch
 
 from mvdfusion_tpu_torch.ops import attention as K2
 from mvdfusion_tpu_torch.ops import block as K3
+from mvdfusion_tpu_torch.ops import conv3x3 as K8
 from mvdfusion_tpu_torch.ops import crossview as K4
 from mvdfusion_tpu_torch.ops import groupnorm as K1
 
@@ -151,3 +152,50 @@ def test_gpu_k4_two_phase_matches_plain(cuda, dt, shape):
     else:
         _gpu_close(tok, want, dt)
     _gpu_close(K4.launch_crossview_two_phase(*args), K4.crossview_two_phase_plain(*args), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gpu_k7_groupnorm_tiled_matches_plain(cuda, dt):
+    """The tiled GroupNorm's stats pass with its fold (a ragged last row tile
+    at N=3000; the eval path's B=7 chunk; 8 groups of 5 channels at C=40)
+    and the apply pass (8 and 4 elements a thread at C = 96 and 128, one at
+    C = 40), and gn_fold_affine's unclamped fold. The stats pass adds its
+    partials in a fixed order: two runs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for shape in ((2, 3000, 96), (7, 4096, 128), (3, 700, 40)):
+        x = _rand(g, cuda, dt, *shape, std=3.0) + 1
+        w, b = 1 + _rand(g, cuda, torch.float32, shape[-1], std=0.1), _rand(g, cuda, torch.float32, shape[-1], std=0.1)
+        groups = 8 if shape[-1] == 40 else 32
+        for act in ("none", "silu"):
+            _gpu_close(K1.launch_group_norm_tiled(x, w, b, groups, 1e-6, act),
+                       K1.group_norm_tiled_plain(x, w, b, groups, 1e-6, act), dt)
+        (ka, kb), (pa, pb) = K8.launch_gn_fold_affine(x, w, b, groups, 1e-6), K8.gn_fold_affine_plain(x, w, b, groups, 1e-6)
+        _gpu_close(ka, pa, torch.float32)
+        _gpu_close(kb, pb, torch.float32)
+        _gpu_close(K1.launch_apply_affine(x, pa, pb, "silu"), K1.apply_affine_plain(x, pa, pb, "silu"), dt)
+        first, again = K1.launch_fold(x, w, b, groups, 1e-6, True), K1.launch_fold(x, w, b, groups, 1e-6, True)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gpu_k8_conv3x3_matches_plain(cuda, dt):
+    """The fused GN-affine + SiLU + conv at edge shapes: H not a multiple of
+    the row tile (TX 32 x TR 4 over H=21; TX 16 x TR 8 over H=9), W not a
+    multiple of the column tile (136 over TX 128), the B=7 chunk, Cin below
+    one 32-channel slice, Cout not a multiple of the 64-channel tile, with and
+    without a residual, and act="none" with the identity affine."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for B, H, W, Cin, Cout, with_res in ((2, 21, 40, 32, 64, True), (7, 19, 64, 128, 128, True),
+                                         (1, 9, 136, 64, 8, False), (2, 9, 16, 16, 24, True)):
+        x = _rand(g, cuda, dt, B, H, W, Cin)
+        a, b = 1 + _rand(g, cuda, torch.float32, B, Cin, std=0.3), _rand(g, cuda, torch.float32, B, Cin, std=0.2)
+        w = _rand(g, cuda, dt, Cout, Cin, 3, 3, std=(9 * Cin) ** -0.5)
+        bias, row = _rand(g, cuda, torch.float32, Cout, std=0.1), _rand(g, cuda, torch.float32, B, Cout, std=0.1)
+        res = _rand(g, cuda, dt, B, H, W, Cout) if with_res else None
+        w9 = K8.pack_weight(w, dt)
+        _gpu_close(K8.launch_conv3x3(x, a, b, w9, bias, row, res), K8.conv3x3_plain(x, a, b, w, bias, row, res), dt)
+        ones, zeros = torch.ones_like(a), torch.zeros_like(b)
+        _gpu_close(K8.launch_conv3x3(x, ones, zeros, w9, bias, row, None, "none"),
+                   K8.conv3x3_plain(x, ones, zeros, w, bias, row, None, "none"), dt)

@@ -12,6 +12,7 @@ import ast
 import re
 from pathlib import Path
 
+import flax.linen as jnn
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -218,6 +219,27 @@ def test_cross_attention_matches(rng, ctx_len):
     ref = jl.CrossAttention(heads, dh).apply({"params": p}, jnp.asarray(x), None if ctx is None else jnp.asarray(ctx))
     m = _load(tl.CrossAttention(C, heads, dh, Cc if ctx_len else None), sd)
     close(m(T(x), None if ctx is None else T(ctx)).detach(), ref, MODULE)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (32, 64)])
+def test_conv1x1_bf16_rounds_as_flax_dense(rng, cin, cout):
+    """Conv1x1 in bf16 (the UNet's skip, proj_in and proj_out; the VAE's 1x1
+    layers) against flax's Dense(dtype=bf16), which rounds the product, then
+    the bias add: 1 bf16 ulp of max|ref|, mean <= 1e-4 x max|ref|. Measured
+    on the CPU: bit for bit; rounding once (product + bias) misses the mean at
+    2.2-2.7e-4 x max|ref|."""
+    w = rng.normal(size=(cin, cout)).astype(np.float32) * cin**-0.5
+    bias = rng.normal(size=(cout,)).astype(np.float32)
+    x = rng.normal(size=(2, 4, 4, cin)).astype(np.float32)
+    w, bias, x = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (w, bias, x))
+    ref = jnn.Dense(cout, dtype=jnp.bfloat16).apply({"params": {"kernel": w, "bias": bias}}, jnp.asarray(x))
+    ref = np.asarray(ref.astype(jnp.float32))
+    m = _load(tl.Conv1x1(cin, cout), {"weight": T(w.T[:, :, None, None].copy()), "bias": T(bias)}).to(torch.bfloat16)
+    out = m(T(x).to(torch.bfloat16)).detach().float().numpy()
+    scale = np.abs(ref).max()
+    err = np.abs(out - ref)
+    assert err.max() <= 2.0 ** (np.floor(np.log2(scale)) - 7), f"max|diff| {err.max():.3e}, max|ref| {scale:.3e}"
+    assert err.mean() <= 1e-4 * scale, f"mean|diff| {err.mean():.3e}, max|ref| {scale:.3e}"
 
 
 def test_timm_attention_and_mlp_match(rng):
