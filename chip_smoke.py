@@ -12,9 +12,12 @@ Phases, each printed with elapsed seconds as it starts and ends:
               and spills per kernel
   3. kernels  each hand-written kernel against its plain PyTorch version at
               the shapes of the flagship and of the eval path in bf16 (and
-              at small shapes in fp32),
-              with the tolerance stated; times kernel, plain version and,
-              where one exists, the one PyTorch call computing the same thing
+              at small shapes in fp32), with the tolerance stated; times
+              kernel, plain version and, where one exists, the one PyTorch
+              call computing the same thing. K2 has three rows: CLIP, and
+              its tile inside K3 at the 32^2 and 16^2 sites (the rows'
+              launches: attention_site_n1024 and _n256, counted by K3's
+              launcher); K5 logs its occupancy
   4. slice    the full-width model (random weights from a seed, built on the
               card) answers 2 requests: prepare_batch on a 256^2 scene,
               --steps eta=1 DDIM steps for 8 target views at CFG 2.5, decode;
@@ -157,15 +160,18 @@ def compare(name, got, want, rtol: float, why: str, dtype) -> float:
     return err
 
 
-def compare_ulp(name, got, want, why: str) -> float:
+def compare_ulp(name, got, want, why: str, mean_tol: float | None = None) -> float:
     """bf16: |kernel - plain| <= 1 bf16 ulp of max|plain| (each side rounds
-    its fp32 result once; the fp32 results differ by far less than an ulp)."""
-    err = (got.float() - want.float()).abs().max().item()
+    its fp32 result once; the fp32 results differ by far less than an ulp),
+    and with `mean_tol` the mean |kernel - plain| <= mean_tol x max|plain|."""
+    diff = (got.float() - want.float()).abs()
+    err, mean = diff.max().item(), diff.mean().item()
     top = want.float().abs().max().item()
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-    ok = math.isfinite(err) and err <= ulp
+    ok = math.isfinite(err) and err <= ulp and (mean_tol is None or mean <= mean_tol * top)
+    mean_txt = "" if mean_tol is None else f", mean {mean:.3e} against {mean_tol:g} x max|plain| = {mean_tol * top:.3e}"
     log(f"  {name} [bf16]: max|kernel - plain| = {err:.3e}, tolerance 1 bf16 ulp of max|plain| {top:.3e} = "
-        f"{ulp:.3e} ({why}) -> {'ok' if ok else 'MISS'}")
+        f"{ulp:.3e}{mean_txt} ({why}) -> {'ok' if ok else 'MISS'}")
     check(ok, f"{name}: kernel disagrees with its plain version ({err:.3e})")
     return err
 
@@ -229,29 +235,41 @@ def kernel_checks():
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                              shape="x (16, 1024, 320) bf16, 32 groups, eps 1e-6")
 
-    # K2 attention: CLIP (ragged N=257) and the VAE mid-attention (dh=512)
+    # K2 attention. bf16 at dh <= 128 takes the tensor-core tile, held to 1
+    # bf16 ulp: CLIP (ragged N=257, dh=64, the pv form) and the self-attention
+    # inside K3 at the 32^2 (dh=40) and 16^2 (dh=80) sites (the probs form),
+    # on strided views of one packed qkv buffer as K3 passes them (timed).
+    # The fp32 loop: fp32 operands, and the VAE mid-attention's dh=512.
     log(" K2 attention")
-    for dt, (B, N, H, dh), rtol in (
-        (torch.float32, (2, 77, 3, 40), 1e-4),
-        (torch.float32, (1, 130, 1, 512), 1e-4),
-        (bf, (1, 1024, 1, 512), 2e-2),
-        (bf, (16, 1024, 8, 40), 2e-2),
-        (bf, (1, 257, 16, 64), 2e-2),
-    ):
+    for dt, (B, N, H, dh) in ((torch.float32, (2, 77, 3, 40)), (torch.float32, (1, 130, 1, 512)),
+                              (bf, (1, 1024, 1, 512))):
         q, k, v = (rnd(B, N, H, dh, dt=dt) for _ in range(3))
-        err = compare(f"attention {(B, N, H, dh)}", K2.launch_attention(q, k, v, dh**-0.5),
-                      K2.attention_plain(q, k, v, dh**-0.5), rtol,
-                      "plain rounds the probabilities to bf16, the kernel keeps fp32" if dt == bf
-                      else "fp32 online vs two-pass softmax", dt)
-    ms = time_ms(lambda: K2.launch_attention(q, k, v, dh**-0.5), ITERS)
-    plain_ms = time_ms(lambda: K2.attention_plain(q, k, v, dh**-0.5), ITERS)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=dh**-0.5), ITERS)
-    bms, by = bound(4 * B * H * N * N * dh, nbytes(q, k, v, q))
-    rows["attention"] = dict(name="attention", route="cuda", source="mvdfusion_tpu_torch/csrc/attention.cu",
-                             replaces="mvdfusion_tpu/ops/attention.py:172", max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                             shape="q/k/v (1, 257, 16, 64) bf16 (CLIP)")
+        compare(f"attention {(B, N, H, dh)}", K2.launch_attention(q, k, v, dh**-0.5),
+                K2.attention_plain(q, k, v, dh**-0.5), 2e-2 if dt == bf else 1e-4,
+                "the fp32 loop keeps the probabilities in fp32, the plain version rounds them" if dt == bf
+                else "fp32 online vs two-pass softmax", dt)
+    for name, (B, N, H, dh), mode, what in (
+        ("attention_site_n1024", (16, 1024, 8, 40), K2.MODE_PROBS, "32^2 site"),
+        ("attention_site_n256", (16, 256, 8, 80), K2.MODE_PROBS, "16^2 site"),
+        ("attention", (1, 257, 16, 64), K2.attention_mode(64), "CLIP"),
+    ):
+        qkv = rnd(B, N, 3, H, dh, dt=bf)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        form = "pv" if mode == K2.MODE_PV else "probs"
+        err = compare_ulp(f"attention {what} {(B, N, H, dh)} ({form})", K2.launch_attention(q, k, v, dh**-0.5, mode),
+                          K2.attention_plain(q, k, v, dh**-0.5, mode),
+                          f"both round P and the output where the reference's {form} form rounds", mean_tol=1e-4)
+        ms = time_ms(lambda: K2.launch_attention(q, k, v, dh**-0.5, mode), ITERS)
+        plain_ms = time_ms(lambda: K2.attention_plain(q, k, v, dh**-0.5, mode), ITERS)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=dh**-0.5), ITERS)
+        flops = 4 * B * H * N * N * dh
+        bms, by = bound(flops, nbytes(q, k, v, q))
+        log(f"  {name}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; SDPA {lib_ms:.4f} ms")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/attention.cu (attention.cuh)",
+                          replaces="mvdfusion_tpu/ops/attention.py:172", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                          shape=f"q/k/v ({B}, {N}, {H}, {dh}) bf16 ({what}, {form}), views of one packed qkv")
 
     # K3 transformer site: 32^2 C=320 (row attn2) and 16^2 C=640 (attn2 map)
     # at the eval path's CFG batch 30 and the flagship's 16 (timed)
@@ -281,8 +299,8 @@ def kernel_checks():
         x, a2, w = site(B, N, C, dt, a2_map)
         err = compare(f"transformer_block B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
                       K3.launch_transformer_block(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
-                      rtol, "bf16 rounding at the same points; K2's unrounded probabilities, fp32 sums in another "
-                      "order" if dt == bf else "fp32 sum order", dt)
+                      rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
+                      else "fp32 sum order", dt)
     ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     M, inner = B * N, 4 * C
@@ -309,16 +327,18 @@ def kernel_checks():
         x, a2, w = site(B, N, C, dt, a2_map)
         err = compare(f"transformer_block_single B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
                       K3.launch_transformer_block_single(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
-                      rtol, "bf16 rounding at the same points; K2's unrounded probabilities, fp32 sums in another "
-                      "order" if dt == bf else "fp32 sum order", dt)
+                      rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
+                      else "fp32 sum order", dt)
     ms = time_ms(lambda: K3.launch_transformer_block_single(x, a2, w, heads), ITERS)
     split_ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
     K3.launch_transformer_block_single(x, a2, w, heads)
     phases = K3.site_phase_ms(x, 4 * C)
+    blocks, sms = K3.site_grid_blocks(x, 4 * C), torch.cuda.get_device_properties(0).multi_processor_count
     log(f"  transformer_block_single: one launch {ms:.4f} ms, the split form's nine launches {split_ms:.4f} ms "
         f"at the same shape; by phase (block 0's clock): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    log(f"  transformer_block_single: occupancy {blocks} blocks of 128 threads = {blocks / sms:g} an SM over {sms} SMs")
     rows["transformer_block_single"] = dict(
         name="transformer_block_single", route="cuda",
         source="mvdfusion_tpu_torch/csrc/blockforms.cu (site_kernel; gemm.cuh, attention.cuh)",
@@ -503,9 +523,9 @@ def vae_kernel_checks(rnd):
         replaces="mvdfusion_tpu/ops/conv3x3.py:62", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="x (8, 65536, 256) bf16, 32 groups")
 
-    # K8 conv: ragged tiles in fp32 (TX 32 x TR 4 over 20 x 40; TX 128 over
-    # W = 136, odd H, Cout 8), the eval chunk's 64^2 x 512 with a residual,
-    # the decoder's 64^2 x 512 and its 256^2 256 -> 128 with the nin residual
+    # K8 conv: ragged tiles in fp32 (TX 32 over 20 x 40; TX 64 over W = 136,
+    # odd H, Cout 8), the eval chunk's 64^2 x 512 with a residual, the
+    # decoder's 64^2 x 512 and its 256^2 256 -> 128 with the nin residual
     # (timed)
     log(" K8 conv3x3")
     err = 0.0
@@ -539,8 +559,9 @@ def vae_kernel_checks(rnd):
     lib_ms = time_ms(lambda: F.conv2d(xn, wn, bias.to(bf), padding=1), ITERS)
     flops = conv_flops(x, w)
     bms, by = bound(flops, nbytes(x, res, w9, a, b, bias, row) + x.numel() // x.shape[-1] * w.shape[0] * 2)
-    log(f"  conv3x3: {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s; the library yardstick is F.conv2d "
-        f"(cuDNN, channels-last bf16) + bias without the prologue and residual")
+    log(f"  conv3x3 (8, 256, 256, 256 -> 128) + res: {ms:.4f} ms, {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} "
+        f"TFLOP/s, bound {bms:.4f} ms; the library yardstick is F.conv2d (cuDNN, channels-last bf16) + bias without "
+        f"the prologue and residual")
     rows["conv3x3"] = dict(
         name="conv3x3", route="cuda", source="mvdfusion_tpu_torch/csrc/conv3x3.cu",
         replaces="mvdfusion_tpu/ops/conv3x3.py:95", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -650,6 +671,8 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "groupnorm": REQUESTS * (steps * 55 + VAE_GN_ENCODE + VAE_GN_DECODE),
         "attention": REQUESTS * 24,
         "transformer_block": REQUESTS * steps * 2 * SITES_PER_LEVEL,
+        "attention_site_n1024": REQUESTS * steps * SITES_PER_LEVEL,  # K2 inside K3, 32^2 sites
+        "attention_site_n256": REQUESTS * steps * SITES_PER_LEVEL,  # and 16^2 sites
         "crossview": REQUESTS * steps,
         "crossview_two_phase": 0,
         "transformer_block_single": 0,
@@ -729,6 +752,8 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
         "groupnorm": steps * 55 + VAE_GN_ENCODE + 2 * chunks * VAE_GN_DECODE,
         "attention": 24,  # CLIP; the VAE's dh=512 heads run at batch >= 2, outside K2's gate
         "transformer_block": steps * 16,
+        "attention_site_n1024": steps * SITES_PER_LEVEL,
+        "attention_site_n256": steps * SITES_PER_LEVEL,
         "crossview_two_phase": steps,
         "crossview": 0,
     }
@@ -805,6 +830,8 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "transformer_block_single": steps * SITES_PER_LEVEL,
         "transformer_block_big": steps * SITES_PER_LEVEL,
         "transformer_block": steps * SITES_PER_LEVEL,
+        "attention_site_n1024": 0,  # the 32^2 sites run K5, whose attention phase is K2's tile
+        "attention_site_n256": steps * SITES_PER_LEVEL,
         "groupnorm": steps * (55 - SITES_PER_LEVEL) + VAE_GN_ENCODE + VAE_GN_DECODE,
         "attention": 24,
         "crossview": steps,

@@ -10,12 +10,14 @@
 // 128-thread blocks as fit the SMs at once, each phase a grid-stride loop
 // over its tiles, the phases separated by grid-wide barriers. Every tile is
 // K3's own code (gemm.cuh's GEMM tile and epilogue, its LayerNorm row,
-// attention.cuh's K2 loop), so K5 rounds where K3 does; the intermediates
-// live in a workspace the wrapper allocates once per shape. Bound on the
-// H100: operations (at B=16, N=1024, C=320: ~60 GFLOP against ~40 MB), and
-// like K3 it is far from them: WMMA tiles without TMA or pipelining and K2's
-// attention on the fp32 CUDA cores. What it removes is K3's eight launch
-// gaps a site; clusters, wgmma and TMA are later work.
+// attention.cuh's K2 tiles: in bf16 the tensor-core tile, rounding the
+// normalised probabilities; in fp32 the CUDA-core loop), so K5 rounds where
+// K3 does; the intermediates live in a workspace the wrapper allocates once
+// per shape. One dynamic shared-memory buffer serves every phase, sized for
+// the larger of the GEMM tile and the attention tile's two-stage ring.
+// Bound on the H100: operations (at B=16, N=1024, C=320: ~60 GFLOP against
+// ~40 MB); its GEMM phases run un-pipelined WMMA tiles. What it removes is
+// K3's eight launch gaps a site.
 //
 // K6's kernel replaces _bigattn_stream_kernel (:370, called at :651), the
 // attention of the big-C form (MVDF_BLOCK_BIGC=1: the C=1280 sites with
@@ -32,6 +34,8 @@
 // tiles); at N=256, dh=160 the bf16 K, V and Q tiles take 187 KB of shared
 // memory, one block an SM.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "attention.cuh"
 #include "gemm.cuh"
@@ -71,12 +75,12 @@ struct SiteParams {
   const float* po_b;
   void* out;
   // workspace: GN mean and rstd per (batch, group); two (M, C) buffers and
-  // one (M, max(3C, inner)) buffer; 12 globaltimer stamps
+  // one (M, max(3C, inner)) buffer; 12 globaltimer stamps and the grid's size
   float* stats;
   void *A, *H, *big;
   unsigned long long* stamps;
   int B, N, C, heads, inner, bk;
-  float gn_eps, ln_eps, scale_log2;
+  float gn_eps, ln_eps, scale, scale_log2;
 };
 
 template <typename T>
@@ -114,7 +118,9 @@ __device__ __forceinline__ void layernorm_phase(const void* x, const float* g, c
     layernorm_row<32>(x, bf, g, b, y, bf, row, C, eps);
 }
 
-template <typename T, int TPQ, int DPT>
+// DP > 0 (bf16): attention.cuh's tensor-core tile with dh padded to DP;
+// DP == 0: its CUDA-core loop with TPQ threads a query, DPT dims a thread
+template <typename T, int TPQ, int DPT, int DP>
 __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -172,12 +178,21 @@ __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
              site_epilogue<T>(nullptr, big, nullptr, nullptr, 1, ACT_NONE, M, 3 * C), smem);
   grid.sync();
   stamp(p.stamps, phase++);
-  // 6. self-attention -> A, one (query block, batch x head) a tile
-  const int dh = C / p.heads, qblocks = (N + blockDim.x / TPQ - 1) / (blockDim.x / TPQ);
+  // 6. self-attention -> A, one (query block, batch x head) a tile; the
+  //    normalised probabilities rounded, as the site kernels round them
+  const int dh = C / p.heads;
   const int64_t sb = (int64_t)N * 3 * C;
-  for (int t = blockIdx.x; t < qblocks * B * p.heads; t += gridDim.x)
-    attn_tile<T, TPQ, DPT>(big, big + C, big + 2 * C, A, p.heads, N, N, dh, sb, 3 * C, sb, 3 * C, sb, 3 * C,
-                           (int64_t)N * C, C, p.scale_log2, p.bk, t % qblocks, t / qblocks, smem);
+  if constexpr (DP > 0) {
+    const int qblocks = (N + attn::QB - 1) / attn::QB;
+    for (int t = blockIdx.x; t < qblocks * B * p.heads; t += gridDim.x)
+      attn_tile_mma<DP>(big, big + C, big + 2 * C, A, p.heads, N, N, dh, sb, 3 * C, sb, 3 * C, sb, 3 * C,
+                        (int64_t)N * C, C, p.scale, ATTN_PROBS, t % qblocks, t / qblocks, smem);
+  } else {
+    const int qblocks = (N + blockDim.x / TPQ - 1) / (blockDim.x / TPQ);
+    for (int t = blockIdx.x; t < qblocks * B * p.heads; t += gridDim.x)
+      attn_tile<T, TPQ, DPT>(big, big + C, big + 2 * C, A, p.heads, N, N, dh, sb, 3 * C, sb, 3 * C, sb, 3 * C,
+                             (int64_t)N * C, C, p.scale_log2, p.bk, t % qblocks, t / qblocks, smem);
+  }
   grid.sync();
   stamp(p.stamps, phase++);
   // 7. out-proj + h0 + attn2 -> H (h2, in place)
@@ -201,21 +216,27 @@ __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
   gemm_phase(H, (const T*)p.po_w, C, C, site_epilogue<T>(p.po_b, p.out, p.x, nullptr, 1, ACT_NONE, M, C), smem);
   grid.sync();
   stamp(p.stamps, phase);
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.stamps[phase + 1] = gridDim.x;  // the launch's grid, for the log
 }
 
-template <typename T, int TPQ, int DPT>
+template <typename T, int TPQ, int DPT, int DP>
 static int launch_site(SiteParams p, cudaStream_t s) {
-  void (*kern)(SiteParams) = site_kernel<T, TPQ, DPT>;
+  void (*kern)(SiteParams) = site_kernel<T, TPQ, DPT, DP>;
+  // one dynamic buffer for every phase: the GEMM tile's, or the attention
+  // tile's two-stage ring where that is larger
+  int smem = GEMM_SMEM_BYTES;
+  if constexpr (DP > 0) smem = attn::Tile<DP>::SMEM > smem ? attn::Tile<DP>::SMEM : smem;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 128, GEMM_SMEM_BYTES);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 128, smem);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(sms * per_sm), dim3(128), args, GEMM_SMEM_BYTES, s);
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(sms * per_sm), dim3(128), args, smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -223,10 +244,24 @@ static int launch_site(SiteParams p, cudaStream_t s) {
 template <typename T>
 static int dispatch_site(const SiteParams& p, cudaStream_t s) {
   const int dh = p.C / p.heads;
-  if (dh <= 32) return launch_site<T, 4, 8>(p, s);
-  if (dh <= 64) return launch_site<T, 4, 16>(p, s);
-  if (dh <= 128) return launch_site<T, 4, 32>(p, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (dh % 8 || dh > 128) return (int)cudaErrorInvalidValue;
+    switch ((dh + 15) / 16) {
+      case 1: return launch_site<T, 0, 0, 16>(p, s);
+      case 2: return launch_site<T, 0, 0, 32>(p, s);
+      case 3: return launch_site<T, 0, 0, 48>(p, s);
+      case 4: return launch_site<T, 0, 0, 64>(p, s);
+      case 5: return launch_site<T, 0, 0, 80>(p, s);
+      case 6: return launch_site<T, 0, 0, 96>(p, s);
+      case 7: return launch_site<T, 0, 0, 112>(p, s);
+      default: return launch_site<T, 0, 0, 128>(p, s);
+    }
+  } else {
+    if (dh <= 32) return launch_site<T, 4, 8, 0>(p, s);
+    if (dh <= 64) return launch_site<T, 4, 16, 0>(p, s);
+    if (dh <= 128) return launch_site<T, 4, 32, 0>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------------------- K6
@@ -405,8 +440,8 @@ using namespace mvdf;
 
 // K5: the whole site in one cooperative launch. a2_div: N for a (B, C) attn2
 // row, 1 for a (B, N, C) map. Workspace: stats (B * 32 * 2 fp32), A and H
-// (B N C), big (B N max(3C, inner)), stamps (12 uint64: the start and
-// the end of each of the 11 phases).
+// (B N C), big (B N max(3C, inner)), stamps (13 uint64: the start and
+// the end of each of the 11 phases, then the number of blocks launched).
 MVDF_API int mvdf_block_single(const void* x, const void* a2, int a2_div, const void* gn_w, const void* gn_b,
                                const void* pi_w, const void* pi_b, const void* ln1_w, const void* ln1_b,
                                const void* qkv_w, const void* out_w, const void* out_b, const void* ln3_w,
@@ -450,9 +485,10 @@ MVDF_API int mvdf_block_single(const void* x, const void* a2, int a2_div, const 
   p.gn_eps = gn_eps;
   p.ln_eps = ln_eps;
   const int dh = C / heads;
-  p.scale_log2 = rsqrtf((float)dh) * 1.4426950408889634f;
+  p.scale = (float)(1.0 / sqrt((double)dh));  // as the wrappers' float(dh ** -0.5)
+  p.scale_log2 = p.scale * 1.4426950408889634f;
   const int esz = dtype == DT_BF16 ? 2 : 4;
-  p.bk = 64;  // K2's key tile, its two stages inside the GEMM tile's shared memory
+  p.bk = 64;  // the fp32 loop's key tile, its two stages inside the GEMM tile's shared memory
   while (p.bk > 8 && 2 * p.bk * dh * esz > GEMM_SMEM_BYTES) p.bk >>= 1;
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == DT_BF16 ? dispatch_site<bf16>(p, s) : dispatch_site<float>(p, s);

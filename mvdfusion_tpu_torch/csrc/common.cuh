@@ -59,6 +59,62 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ---- Hopper's warp-level tensor-core path (sm_90a, PTX ISA 7.x): 16-byte
+// asynchronous copies into shared memory, ldmatrix and mma.sync m16n8k16 with
+// bf16 operands and fp32 sums. Fragment layouts are the ISA's: for a 16x16 A
+// tile, a thread holds rows lane/4 and lane/4 + 8 at columns 2*(lane%4) + {0,
+// 1} and + 8; for a 16x8 B tile, rows (k) 2*(lane%4) + {0, 1} and + 8 at column
+// lane/4; for the 16x8 fp32 sum, c0 c1 at row lane/4 and c2 c3 at row
+// lane/4 + 8, columns 2*(lane%4) + {0, 1}.
+
+// 16 bytes from global to shared memory; `full` false writes 16 zero bytes
+// and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem_src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+// (16 bytes each), register i receives this thread's pair of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem_row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+// the same, each matrix transposed on the way (a B fragment from k-major rows)
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* smem_row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 in one register, `lo` at the lower address
+__device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) | ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
 // sum over the whole block (blockDim.x a multiple of 32, <= 1024); every
 // thread gets the result. `scratch` holds >= 32 floats.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {

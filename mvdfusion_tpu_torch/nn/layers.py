@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvdfusion_tpu_torch.ops.attention import attention_plain, fused_attention, should_fuse_attention
+from mvdfusion_tpu_torch.ops.attention import fused_attention, should_fuse_attention, xla_attention
 from mvdfusion_tpu_torch.ops.groupnorm import group_norm_act, group_norm_plain, should_fuse_gn
 
 
@@ -103,7 +103,7 @@ def dot_attention(q, k, v, scale: float):
     sites go through the K2 kernel wrapper (ops/attention.py)."""
     if should_fuse_attention(q, k):
         return fused_attention(q, k, v, scale)
-    return attention_plain(q, k, v, scale)
+    return xla_attention(q, k, v, scale)
 
 
 class GEGLU(nn.Module):

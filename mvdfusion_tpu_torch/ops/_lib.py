@@ -40,7 +40,7 @@ _SIGNATURES = {
     "mvdf_gn_stats": "pppppp" + "iiiii" + "f" + "ii" + "p",
     "mvdf_gn_apply": "ppppiiiiip",
     "mvdf_conv3x3": "pppppppp" + "iiiiiii" + "p",
-    "mvdf_attention": "ppppiiiiillllllllfip",
+    "mvdf_attention": "ppppiiiiillllllllfiip",
     "mvdf_layernorm": "pipppiiifp",
     "mvdf_gemm": "ppppipipiipiiiiiip",
     "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "iiiii" + "ff" + "ip",

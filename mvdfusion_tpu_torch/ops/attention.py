@@ -1,11 +1,21 @@
 """K2: unmasked, non-causal multi-head softmax attention.
 
 Replaces mvdfusion_tpu/ops/attention.py::_fused_attention_fwd_impl (its four
-Pallas kernels compute one function). The kernel is csrc/attention.cu: a
-flash-style loop over key tiles in shared memory with an fp32 online softmax
-and a masked ragged edge. Operands keep the reference layout: q (B, Nq, H, dh),
+Pallas kernels compute one function in two forms). The kernel is
+csrc/attention.cu. Operands keep the reference layout: q (B, Nq, H, dh),
 k/v (B, Nk, H, dh), given as (tensor, batch stride, row stride) views so the
 transformer site can pass its packed qkv without a copy.
+
+The reference rounds in one of two forms, chosen from dh alone
+(`attention_mode`); both take the logits in fp32:
+- ``pv`` where its ones column is free (dh = 40, 64, 80: every dh < 128):
+  e = exp((s - max) * scale) rounded to the operands' dtype, the row sum the
+  fp32 sum of the rounded e, PV summed in fp32, times 1/sum, rounded once;
+- ``probs`` at lane-aligned dh (128, 512): exp((s - max) * scale) over its
+  fp32 sum, rounded, PV summed in fp32 and rounded once. The transformer
+  sites' kernels (ops/block.py) round this way too.
+The reference's A/B switches MVDF_ATTN_NORM and MVDF_ATTN_T pick Mosaic
+layouts and do not carry over; its transposed orientation computes ``pv``.
 """
 
 from __future__ import annotations
@@ -13,6 +23,23 @@ from __future__ import annotations
 import torch
 
 from mvdfusion_tpu_torch.ops import _lib
+
+MODE_PROBS, MODE_PV = 0, 1  # the kernel's `mode` argument
+_SUBLANE = 8
+
+
+def ones_free(dh: int) -> bool:
+    """The reference's test for its ``pv`` form (ops/attention.py:176-177,
+    229-230): the ones column that carries the row sum fits the 128-lane
+    tiles dh already pads to."""
+    dh_p = -(-dh // _SUBLANE) * _SUBLANE
+    dv = -(-(dh + 1) // _SUBLANE) * _SUBLANE
+    return -(-dv // 128) == -(-dh_p // 128)
+
+
+def attention_mode(dh: int) -> int:
+    """K2's rounding form at head dim dh, as the reference picks it."""
+    return MODE_PV if ones_free(dh) else MODE_PROBS
 
 
 def should_fuse_attention(q, k) -> bool:
@@ -26,8 +53,25 @@ def should_fuse_attention(q, k) -> bool:
     return Nk <= 4096 and dh <= 512 and Nk * dh <= (1 << 20)
 
 
-def attention_plain(q, k, v, scale: float):
-    """fp32 softmax of (q k^T) * scale, probabilities cast to q's dtype."""
+def attention_plain(q, k, v, scale: float, mode: int | None = None):
+    """Plain version of K2, rounding where the reference's kernel rounds in
+    `mode` (default: attention_mode(dh))."""
+    dt = q.dtype
+    mode = attention_mode(q.shape[-1]) if mode is None else mode
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    e = torch.exp((s - s.amax(-1, keepdim=True)) * scale)
+    if mode == MODE_PV:
+        e = e.to(dt).float()
+        o = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
+        return (o * (1.0 / e.sum(-1)).transpose(1, 2)[..., None]).to(dt)
+    p = (e / e.sum(-1, keepdim=True)).to(dt)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(dt)
+
+
+def xla_attention(q, k, v, scale: float):
+    """The reference's module path outside the kernel's gate (nn/layers.py::
+    dot_attention, XLA): logits as a product in the operands' dtype, fp32
+    softmax, probabilities cast to that dtype."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -41,19 +85,28 @@ def _strides(t):
     return t.stride(0), t.stride(1)
 
 
-def launch_attention(q, k, v, scale: float, out=None):
+def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None):
     """Launch csrc/attention.cu (no counting). q/k/v may be strided views of
-    one buffer; `out` (B, Nq, H, dh) contiguous is allocated if not given."""
+    one buffer; `out` (B, Nq, H, dh) contiguous is allocated if not given.
+    `mode` (default attention_mode(dh)) sets the tensor-core tile's
+    rounding; the fp32 loop keeps its probabilities in fp32."""
     B, Nq, H, dh = q.shape
     Nk = k.shape[1]
+    mode = attention_mode(dh) if mode is None else mode
     if out is None:
         out = torch.empty(B, Nq, H, dh, dtype=q.dtype, device=q.device)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("attention operands must share one dtype")
     (qb, qn), (kb, kn), (vb, vn) = _strides(q), _strides(k), _strides(v)
+    if q.dtype == torch.bfloat16 and dh <= 128:
+        # the tensor-core tile (else the fp32 loop): 16-byte copies of K and
+        # V rows, 4-byte reads of q and writes of out
+        rows16 = all(s % 8 == 0 for s in (dh, kb, kn, vb, vn)) and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+        if not (rows16 and qb % 2 == 0 and qn % 2 == 0 and q.data_ptr() % 4 == 0):
+            raise ValueError("the bf16 attention tile needs dh % 8 == 0 and 16-byte aligned K/V rows")
     _lib.call(
         "mvdf_attention", _lib.view_ptr(q), _lib.view_ptr(k), _lib.view_ptr(v), out, B, H, Nq, Nk, dh,
-        qb, qn, kb, kn, vb, vn, out.stride(0), out.stride(1), float(scale), _lib.dtype_code(q.dtype),
+        qb, qn, kb, kn, vb, vn, out.stride(0), out.stride(1), float(scale), int(mode), _lib.dtype_code(q.dtype),
     )
     return out
 

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from mvdfusion_tpu_torch.ops import _lib
-from mvdfusion_tpu_torch.ops.attention import launch_attention
+from mvdfusion_tpu_torch.ops.attention import MODE_PROBS, attention_plain, launch_attention
 from mvdfusion_tpu_torch.ops.groupnorm import group_norm_plain, launch_group_norm
 
 _LN_EPS = 1e-5
@@ -195,16 +195,6 @@ def _ln_plain(h, w, b, eps=_LN_EPS):
     return ((hf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()).to(h.dtype)
 
 
-def _attention_plain(q, k, v, scale: float):
-    """The site kernels' attention on (B, N, H, dh): fp32 logits of the
-    operands, exp((l - max) * scale) over its sum rounded to their dtype, PV
-    summed in fp32 and rounded."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    p = torch.exp((logits - logits.amax(-1, keepdim=True)) * scale)
-    p = (p / p.sum(-1, keepdim=True)).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
-
-
 def qkv_attention_plain(ln1, qkv_w, heads: int):
     """Plain version of bigattn_kernel, and the qkv + attention stage of every
     form: q, k and v projected from ln1 (B, N, C) and rounded, then the site
@@ -212,7 +202,7 @@ def qkv_attention_plain(ln1, qkv_w, heads: int):
     B, N, C = ln1.shape
     dh = C // heads
     qkv = _mm(ln1, qkv_w).reshape(B, N, 3, heads, dh)
-    return _attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dh**-0.5).reshape(B, N, C)
+    return attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dh**-0.5, MODE_PROBS).reshape(B, N, C)
 
 
 def _gelu(x):
@@ -267,14 +257,17 @@ def _operands(x_in, attn2_add, w: BlockWeights):
 
 
 def launch_transformer_block(x_in, attn2_add, w: BlockWeights, heads: int):
-    """K3, the split form on the card: K1, LayerNorm, GEMMs and K2 (no counting)."""
+    """K3, the split form on the card: K1, LayerNorm, GEMMs and K2. Counts
+    only its K2 launch, under attention_site_n{N} (K3's own count is
+    transformer_block's)."""
     B, N, C = x_in.shape
     M, dh = B * N, C // heads
     x, a2, a2_div, w = _operands(x_in, attn2_add, w)
     xg = launch_group_norm(x, w.gn_w, w.gn_b, _GN_GROUPS, _GN_EPS).view(M, C)
     h0 = gemm(xg, w.pi_w, w.pi_b)
     qkv = gemm(layernorm(h0, w.ln1_w, w.ln1_b), w.qkv_w).view(B, N, 3, heads, dh)
-    attn = launch_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dh**-0.5).view(M, C)
+    attn = launch_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dh**-0.5, MODE_PROBS).view(M, C)
+    _lib.LAUNCHES[f"attention_site_n{N}"] += 1  # K2 inside K3, by sequence length
     h2 = gemm(attn, w.out_w, w.out_b, res1=h0, res2=a2, res2_div=a2_div, steps=True)
     y = gemm(layernorm(h2, w.ln3_w, w.ln3_b), w.g_w, w.g_b, act=ACT_GEGLU, steps=True)
     h3 = gemm(y, w.f_w, w.f_b, res1=h2, steps=True)
@@ -291,7 +284,7 @@ SITE_PHASES = ("gn_stats", "gn_apply", "proj_in", "ln1", "qkv", "attention", "ou
 def _site_workspace(B: int, N: int, C: int, inner: int, dtype, device):
     """K5's intermediates, allocated once per shape: GN mean and rstd per
     (batch, group), two (M, C) buffers, one (M, max(3C, inner)), and the
-    phase stamps."""
+    phase stamps followed by the launch's number of blocks."""
     key = (B, N, C, inner, dtype, torch.device(device))
     if key not in _WORKSPACE:
         M = B * N
@@ -300,7 +293,7 @@ def _site_workspace(B: int, N: int, C: int, inner: int, dtype, device):
             torch.empty(M, C, dtype=dtype, device=device),
             torch.empty(M, C, dtype=dtype, device=device),
             torch.empty(M * max(3 * C, inner), dtype=dtype, device=device),
-            torch.zeros(len(SITE_PHASES) + 1, dtype=torch.int64, device=device),
+            torch.zeros(len(SITE_PHASES) + 2, dtype=torch.int64, device=device),
         )
     return _WORKSPACE[key]
 
@@ -312,6 +305,13 @@ def site_phase_ms(x_in, inner: int) -> dict:
     B, N, C = x_in.shape
     t = _site_workspace(B, N, C, inner, x_in.dtype, x_in.device)[-1].tolist()
     return {name: (t[i + 1] - t[i]) / 1e6 for i, name in enumerate(SITE_PHASES)}
+
+
+def site_grid_blocks(x_in, inner: int) -> int:
+    """Blocks of the last K5 launch at x_in's shape (B, N, C) and GEGLU width
+    `inner`: the SMs times the blocks an SM holds (waits for the device)."""
+    B, N, C = x_in.shape
+    return int(_site_workspace(B, N, C, inner, x_in.dtype, x_in.device)[-1][-1])
 
 
 def launch_transformer_block_single(x_in, attn2_add, w: BlockWeights, heads: int):

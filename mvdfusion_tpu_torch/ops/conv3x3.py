@@ -14,8 +14,9 @@ when called). Under it nn/vae.py::VAEResnetBlock computes
   rsqrt(E[x^2] - mu^2 + eps) (conv3x3.py:89; its tiled GroupNorm clamps).
 - gn_silu_conv3x3 replaces _fwd_impl -> _conv_kernel (:95, :230): on the
   card csrc/conv3x3.cu, an implicit GEMM whose prologue applies the folded
-  affine and SiLU once per staged element (bf16 tensor-core products with
-  fp32 sums, or full fp32), and whose epilogue adds bias + row[b] (+ res) in
+  affine and SiLU once per staged element (bf16: mma.sync tiles of 128
+  pixels x 128 output channels fed by a cp.async ring, fp32 sums; fp32: full
+  fp32 on the CUDA cores), and whose epilogue adds bias + row[b] (+ res) in
   fp32 and rounds once. Activations are NHWC; the weight is the torch conv's
   (Cout, Cin, 3, 3) parameter, packed once per parameter into the kernel's
   tap-major (9*Cin, Cout) layout in the compute dtype.
@@ -118,13 +119,18 @@ def launch_conv3x3(x, a, b, w9, bias, row, res=None, act: str = "silu"):
         raise ValueError(f"packed weight {tuple(w9.shape)} {w9.dtype} for Cin={Cin}, {x.dtype}")
     if Cout % 8:
         raise ValueError(f"Cout={Cout}: the kernel reads the weight in 16-byte rows (Cout % 8 == 0)")
+    if x.dtype == torch.bfloat16 and Cin % 8:
+        raise ValueError(f"Cin={Cin}: the bf16 kernel copies x in 16-byte rows (Cin % 8 == 0)")
     if res is not None and tuple(res.shape) != (B, H, W, Cout):
         raise ValueError(f"residual {tuple(res.shape)} for output {(B, H, W, Cout)}")
-    x = x.contiguous()
+    x, w9 = x.contiguous(), w9.contiguous()
     y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
     f32 = lambda t: t.float().contiguous()
+    a, b = f32(a), f32(b)
+    if any(t.data_ptr() % 16 for t in (x, w9, a, b)):
+        raise ValueError("conv3x3 operands must be 16-byte aligned")
     _lib.call(
-        "mvdf_conv3x3", x, f32(a), f32(b), w9.contiguous(), f32(bias), f32(row),
+        "mvdf_conv3x3", x, a, b, w9, f32(bias), f32(row),
         None if res is None else res.to(x.dtype).contiguous(), y,
         B, H, W, Cin, Cout, int(act == "silu"), _lib.dtype_code(x.dtype),
     )

@@ -8,8 +8,12 @@ machine without it:
 
 Tolerance: max|kernel - plain| <= tol x max(1, max|plain|), tol 1e-4 in fp32
 (the same math in another sum order) and 3e-2 in bf16 (roundings at other
-points of chained bf16 products). TF32 is off for the plain versions.
+points of chained bf16 products); K2's bf16 tensor-core tile, which rounds
+where its plain version rounds, 1 bf16 ulp of max|plain| and a mean of 1e-4
+x max|plain|. TF32 is off for the plain versions.
 """
+
+import math
 
 import pytest
 import torch
@@ -55,6 +59,37 @@ def test_gpu_k1_k2_kernels_match_plain(cuda, dt):
         _gpu_close(K2.launch_attention(q, k, v, shape[-1] ** -0.5), K2.attention_plain(q, k, v, shape[-1] ** -0.5), dt)
 
 
+def _close_ulp(got, want):
+    """bf16: max|kernel - plain| <= 1 bf16 ulp of max|plain|, mean <= 1e-4 x
+    max|plain| (both sides round at the same points; only roundings split by
+    an fp32 difference remain)."""
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert err.max().item() <= ulp, f"max|diff| {err.max().item():.3e} > 1 ulp {ulp:.3e}"
+    assert err.mean().item() <= 1e-4 * top, f"mean|diff| {err.mean().item():.3e} > 1e-4 x {top:.3e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [K2.MODE_PROBS, K2.MODE_PV])
+@pytest.mark.parametrize("dh", [40, 64, 80, 128])
+def test_gpu_k2_tensor_core_tile_matches_plain(cuda, mode, dh):
+    """The bf16 tile in each rounding form: q/k/v as strided views of one
+    packed (B, N, 3, H, dh) buffer, as K3 passes them, at N = 257 (a ragged
+    key tile and a ragged query tile); then separate buffers with Nq = 100
+    queries against Nk = 257 keys. Two runs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, H, N = 2, 3, 257
+    qkv = _rand(g, cuda, torch.bfloat16, B, N, 3, H, dh)
+    cases = [(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
+             (_rand(g, cuda, torch.bfloat16, B, 100, H, dh),) + tuple(_rand(g, cuda, torch.bfloat16, B, N, H, dh)
+                                                                     for _ in range(2))]
+    for q, k, v in cases:
+        got = K2.launch_attention(q, k, v, dh**-0.5, mode)
+        _close_ulp(got, K2.attention_plain(q, k, v, dh**-0.5, mode))
+        assert torch.equal(got, K2.launch_attention(q, k, v, dh**-0.5, mode))
+
+
 def _site_weights(g, dev, dt, C):
     lin = lambda o, i: _rand(g, dev, dt, o, i, std=i**-0.5)
     vec = lambda n: _rand(g, dev, torch.float32, n, std=0.1)
@@ -79,14 +114,16 @@ def test_gpu_k3_kernel_matches_plain(cuda, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gpu_k5_kernel_matches_plain(cuda, dt):
     """The one-kernel site at a 32^2 C=320 site (B=2) and a small ragged one
-    (N=96: partial GEMM and attention tiles), attn2 row and map."""
+    (N=96: partial GEMM and attention tiles), attn2 row and map; in bf16 its
+    attention phase is the tensor-core tile. Two runs give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(4)
     for B, N, C, heads in ((2, 1024, 320, 8), (3, 96, 64, 4)):
         w = _site_weights(g, cuda, dt, C)
         x = _rand(g, cuda, dt, B, N, C)
         for a2 in (_rand(g, cuda, dt, B, C), _rand(g, cuda, dt, B, N, C)):
-            _gpu_close(K3.launch_transformer_block_single(x, a2, w, heads),
-                       K3.transformer_block_plain(x, a2, w, heads), dt)
+            got = K3.launch_transformer_block_single(x, a2, w, heads)
+            _gpu_close(got, K3.transformer_block_plain(x, a2, w, heads), dt)
+            assert torch.equal(got, K3.launch_transformer_block_single(x, a2, w, heads))
 
 
 @pytest.mark.gpu
@@ -183,19 +220,24 @@ def test_gpu_k7_groupnorm_tiled_matches_plain(cuda, dt):
 def test_gpu_k8_conv3x3_matches_plain(cuda, dt):
     """The fused GN-affine + SiLU + conv at edge shapes: H not a multiple of
     the row tile (TX 32 x TR 4 over H=21; TX 16 x TR 8 over H=9), W not a
-    multiple of the column tile (136 over TX 128), the B=7 chunk, Cin below
-    one 32-channel slice, Cout not a multiple of the 64-channel tile, with and
-    without a residual, and act="none" with the identity affine."""
+    multiple of the column tile (136 and 40), the B=7 chunk, Cin of one
+    16-channel slice, Cout below or not a multiple of the channel tile (8,
+    24, 64), two and four column tiles (Cout 256 at W=64, 512 at W=16), with
+    and without a residual, and act="none" with the identity affine. Two runs
+    give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(7)
     for B, H, W, Cin, Cout, with_res in ((2, 21, 40, 32, 64, True), (7, 19, 64, 128, 128, True),
-                                         (1, 9, 136, 64, 8, False), (2, 9, 16, 16, 24, True)):
+                                         (1, 9, 136, 64, 8, False), (2, 9, 16, 16, 24, True),
+                                         (2, 12, 64, 64, 256, True), (1, 20, 16, 32, 512, False)):
         x = _rand(g, cuda, dt, B, H, W, Cin)
         a, b = 1 + _rand(g, cuda, torch.float32, B, Cin, std=0.3), _rand(g, cuda, torch.float32, B, Cin, std=0.2)
         w = _rand(g, cuda, dt, Cout, Cin, 3, 3, std=(9 * Cin) ** -0.5)
         bias, row = _rand(g, cuda, torch.float32, Cout, std=0.1), _rand(g, cuda, torch.float32, B, Cout, std=0.1)
         res = _rand(g, cuda, dt, B, H, W, Cout) if with_res else None
         w9 = K8.pack_weight(w, dt)
-        _gpu_close(K8.launch_conv3x3(x, a, b, w9, bias, row, res), K8.conv3x3_plain(x, a, b, w, bias, row, res), dt)
+        got = K8.launch_conv3x3(x, a, b, w9, bias, row, res)
+        _gpu_close(got, K8.conv3x3_plain(x, a, b, w, bias, row, res), dt)
+        assert torch.equal(got, K8.launch_conv3x3(x, a, b, w9, bias, row, res))
         ones, zeros = torch.ones_like(a), torch.zeros_like(b)
         _gpu_close(K8.launch_conv3x3(x, ones, zeros, w9, bias, row, None, "none"),
                    K8.conv3x3_plain(x, ones, zeros, w, bias, row, None, "none"), dt)

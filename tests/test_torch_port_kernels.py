@@ -23,6 +23,7 @@ from mvdfusion_tpu.geometry.cameras import look_at_view_transform, make_cameras 
 from mvdfusion_tpu.nn.unet import SpatialTransformer as JSpatial
 from mvdfusion_tpu.nn.unet import ViewAlignedFeatureTransformer as JViewAligned
 from mvdfusion_tpu.nn.viewattn import GridAttn as JGridAttn
+import mvdfusion_tpu.ops.attention as ja
 from mvdfusion_tpu.ops.attention import fused_attention as j_attention
 from mvdfusion_tpu.ops.groupnorm import group_norm_act as j_group_norm
 from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule
@@ -79,6 +80,52 @@ def test_k2_attention_matches_pallas(rng, shape):
     scale = shape[-1] ** -0.5
     ref = j_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, True)
     close(K2.fused_attention(T(q), T(k), T(v), scale), ref)
+
+
+@pytest.mark.parametrize("shape,form", [
+    ((1, 257, 2, 64), "natural pv"),  # CLIP's ragged 257 tokens
+    ((2, 256, 2, 40), "transposed pv"),  # a 32^2-site head
+    ((1, 256, 1, 512), "natural probs"),  # the VAE's lane-aligned dh=512 head
+])
+def test_k2_bf16_matches_pallas(rng, monkeypatch, shape, form):
+    """K2's plain version in bf16 against the reference's kernel in each of its
+    rounding forms (interpret mode, compiled without XLA's excess precision,
+    which would drop the bf16 roundings inside the kernel body): 1 bf16 ulp
+    of max|ref|, mean 1e-4 x max|ref|."""
+    for var in ("MVDF_ATTN_NORM", "MVDF_ATTN_T"):
+        monkeypatch.delenv(var, raising=False)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    f = jax.jit(lambda q, k, v: ja._fused_attention_fwd_impl(q, k, v, scale, True))
+    ref = np.asarray(f.lower(jq, jk, jv).compile(compiler_options={"xla_allow_excess_precision": False})(
+        jq, jk, jv).astype(jnp.float32))
+    out = K2.fused_attention(*(T(a).to(torch.bfloat16) for a in (q, k, v)), scale).float().numpy()
+    top = np.abs(ref).max()
+    err = np.abs(out - ref)
+    assert err.max() <= 2.0 ** (np.floor(np.log2(top)) - 7), f"{form}: max|diff| {err.max():.3e}"
+    assert err.mean() <= 1e-4 * top, f"{form}: mean|diff| {err.mean():.3e}"
+
+
+@pytest.mark.parametrize("dh", [40, 64, 80, 128, 512])
+def test_k2_plain_mode_follows_ones_free(monkeypatch, dh):
+    """attention_plain's default form is the one the reference's natural
+    orientation traces at this dh (its ones_free test): _attn_kernel (pv) or
+    _attn_kernel_probs."""
+    monkeypatch.setenv("MVDF_ATTN_T", "0")
+    monkeypatch.delenv("MVDF_ATTN_NORM", raising=False)
+    traced = []
+    for name in ("_attn_kernel", "_attn_kernel_probs"):
+        real = getattr(ja, name)
+        monkeypatch.setattr(ja, name, lambda *a, _n=name, _f=real, **kw: (traced.append(_n), _f(*a, **kw))[1])
+    x = jnp.zeros((1, 8, 1, dh), jnp.float32)
+    jax.make_jaxpr(lambda q: ja._fused_attention_fwd_impl(q, q, q, 1.0, True))(x)
+    want = K2.MODE_PV if traced == ["_attn_kernel"] else K2.MODE_PROBS
+    assert traced in (["_attn_kernel"], ["_attn_kernel_probs"]), traced
+    assert K2.attention_mode(dh) == want
+    q, k, v = (torch.randn(1, 9, 2, dh, generator=torch.Generator().manual_seed(i)).to(torch.bfloat16)
+               for i in range(3))
+    assert torch.equal(K2.attention_plain(q, k, v, dh**-0.5), K2.attention_plain(q, k, v, dh**-0.5, want))
 
 
 # --------------------------------------------------------------------- K3
