@@ -2,6 +2,11 @@
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
+    python3 chip_smoke.py --profile-only STEPS
+
+--profile-only runs the device and build phases, answers one 1-step request
+to warm up, traces STEPS flagship steps on the default route and stops (no
+checks, no JSON): the same script profiles two trees of the port alike.
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -17,12 +22,16 @@ Phases, each printed with elapsed seconds as it starts and ends:
               call computing the same thing. K2 has three rows: CLIP, and
               its tile inside K3 at the 32^2 and 16^2 sites (the rows'
               launches: attention_site_n1024 and _n256, counted by K3's
-              launcher); K5 logs its occupancy
+              launcher); K5 logs its occupancy. The site GEMM has one row at
+              each distinct (M, N, K) of the three driven paths in bf16: the
+              wgmma kernel (gemm_sm90.cu) against its plain version, timed
+              beside block.cu's wmma tile and torch.matmul (cuBLAS)
   4. slice    the full-width model (random weights from a seed, built on the
               card) answers 2 requests: prepare_batch on a 256^2 scene,
               --steps eta=1 DDIM steps for 8 target views at CFG 2.5, decode;
               checks shapes, finiteness, the [0, 1] image range and that every
-              kernel's launch count rose by what the path implies
+              kernel's launch count rose by what the path implies (every
+              bf16 product on the wgmma GEMM, none on the wmma tile)
   5. eval     the same model runs the evaluation path (configs/gso.yaml's
               protocol: 1 input view -> 15 target views on the 16-view GSO
               rig, CFG batch 30) on one in-memory scene of random 256^2
@@ -91,6 +100,11 @@ EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
 # 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
 # every gate)
 SITES_PER_LEVEL = 8
+# site GEMMs per step: 6 at each of the 16 split sites (K3) + the DiT's 4 per
+# layer x 3 + its output GEMM (K4); with the forms on, K5's 8 sites have none
+# and K6's 8 have 5 each
+GEMMS_PER_STEP = 6 * 2 * SITES_PER_LEVEL + 13
+GEMMS_PER_STEP_FORMS = 6 * SITES_PER_LEVEL + 5 * SITES_PER_LEVEL + 13
 ITERS = 20  # timed launches per kernel after warm-up
 VAE_ITERS = 5  # timed encode and decode calls per VAE route after one warm-up
 
@@ -121,6 +135,36 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time per call of `fn`: the calls are queued behind a sleep
+    kernel that outlasts their queueing, so the two events bracket the
+    device's work alone and not the host's launch path (time_ms measures
+    whichever of the two is slower)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3  # queueing + device, an upper bound of the queueing
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(1 << 20)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = (1 << 20) / max(a.elapsed_time(b), 1e-3)
+    torch.cuda._sleep(int(2 * host_ms * cycles_per_ms) + 1)
     a.record()
     for _ in range(iters):
         fn()
@@ -301,7 +345,8 @@ def kernel_checks():
                       K3.launch_transformer_block(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
                       rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
                       else "fp32 sum order", dt)
-    ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
+    wp = K3.prepare_site_weights(w, dt)  # as the model's sites hold them
+    ms = time_ms(lambda: K3.launch_transformer_block(x, a2, wp, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     M, inner = B * N, 4 * C
     flops = 2 * M * C * (6 * C + 3 * inner) + 4 * B * N * N * C
@@ -329,8 +374,9 @@ def kernel_checks():
                       K3.launch_transformer_block_single(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
                       rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
                       else "fp32 sum order", dt)
-    ms = time_ms(lambda: K3.launch_transformer_block_single(x, a2, w, heads), ITERS)
-    split_ms = time_ms(lambda: K3.launch_transformer_block(x, a2, w, heads), ITERS)
+    wp = K3.prepare_site_weights(w, dt)
+    ms = time_ms(lambda: K3.launch_transformer_block_single(x, a2, wp, heads), ITERS)
+    split_ms = time_ms(lambda: K3.launch_transformer_block(x, a2, wp, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
     K3.launch_transformer_block_single(x, a2, w, heads)
@@ -365,7 +411,8 @@ def kernel_checks():
                       K3.launch_transformer_block_big(x, a2, w, heads), K3.transformer_block_big_plain(x, a2, w, heads),
                       rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
                       else "fp32 sum order", dt)
-    ms = time_ms(lambda: K3.launch_transformer_block_big(x, a2, w, heads), ITERS)
+    wp = K3.prepare_site_weights(w, dt)
+    ms = time_ms(lambda: K3.launch_transformer_block_big(x, a2, wp, heads), ITERS)
     attn_ms = time_ms(lambda: K3.launch_big_attention(ln1, w.qkv_w, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_big_plain(x, a2, w, heads), ITERS)
     bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
@@ -405,7 +452,8 @@ def kernel_checks():
         args, N, mlp, G = cv_inputs(V, Hh, hid, L, heads, out_dim, dt)
         err = compare(f"crossview V={V} N={N} hid={hid}", K4.launch_crossview(*args), K4.crossview_plain(*args),
                       rtol, "bf16 operands, fp32 residual stream on both sides" if dt == bf else "fp32 sum order", dt)
-    ms = time_ms(lambda: K4.launch_crossview(*args), ITERS)
+    kw = K4.prepare_crossview_weights(args[6], args[7], dt)  # as GridAttn holds them
+    ms = time_ms(lambda: K4.launch_crossview(*args[:6], *kw, *args[8:]), ITERS)
     plain_ms = time_ms(lambda: K4.crossview_plain(*args), max(2, ITERS // 4))
     T = N * V
     flops = (2 * T * (G + 4) * hid + L * (2 * T * hid * (4 * hid + 2 * mlp) + 4 * T * V * hid)
@@ -436,7 +484,8 @@ def kernel_checks():
                       K4.crossview_two_phase_plain(*args), rtol,
                       "bf16 operands, tokens rounded at the same point, fp32 residual stream on both sides"
                       if dt == bf else "fp32 sum order", dt)
-    ms = time_ms(lambda: K4.launch_crossview_two_phase(*args), ITERS)
+    kw = K4.prepare_crossview_weights(args[6], args[7], dt)
+    ms = time_ms(lambda: K4.launch_crossview_two_phase(*args[:6], *kw, *args[8:]), ITERS)
     phase1_ms = time_ms(lambda: K4.launch_gather_tokens(*geo_args), ITERS)
     plain_ms = time_ms(lambda: K4.crossview_two_phase_plain(*args), max(2, ITERS // 4))
     T = N * V
@@ -452,6 +501,7 @@ def kernel_checks():
         bound_ms=bms, bound_by=by, library_ms=None,
         shape="V=15, N=15360, hid 256, 3 layers, 8 heads, out 768, bf16")
     rows.update(vae_kernel_checks(rnd))
+    rows.update(gemm_checks(rnd))
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -569,6 +619,110 @@ def vae_kernel_checks(rnd):
     return rows
 
 
+# the site GEMM's distinct shapes on the three driven paths, bf16 operands:
+# (M, N, K, epilogue, phase, the TPU kernel whose product it is). M: the
+# flagship's CFG batch 16 x 1024 (32^2) and x 256 (16^2) tokens, the DiT's
+# 8 views x 8192 points and the 8192 pooled points; the eval path's CFG
+# batch 30 and 15 views x 15360 points; the forms route's C=1280 8^2 sites
+# (16 x 64). N is the weight's rows: GEGLU's packed value and gate rows are
+# twice the inner width. Epilogues as the path runs them: "res" the out-projection's
+# h0 + attn2 (a row per batch element at 32^2, a map at 16^2 and 8^2),
+# "ff" FF out + h2, "ff1" the big-C form's one rounding, "gate" the DiT's
+# gated in-place residual on its fp32 stream, "f32" its qkv in fp32, "qkv"
+# the site's qkv (no bias).
+_SITE, _FF, _BIGC, _DIT = ("mvdfusion_tpu/ops/block.py:315", "mvdfusion_tpu/ops/block.py:327",
+                           "mvdfusion_tpu/ops/block.py:338", "mvdfusion_tpu/ops/crossview.py:188")
+GEMM_ROWS = [
+    *((M, N, K, epi, phase, src)
+      for phase, (B, V) in (("slice", (16, 8)), ("eval", (30, 15)))
+      for M, N, K, epi, src in (
+          (B * 1024, 320, 320, "res_row", _SITE), (B * 1024, 960, 320, "qkv", _SITE),
+          (B * 1024, 2560, 320, "geglu", _FF), (B * 1024, 320, 1280, "ff", _FF),
+          (B * 256, 640, 640, "res_map", _SITE), (B * 256, 1920, 640, "qkv", _SITE),
+          (B * 256, 5120, 640, "geglu", _FF), (B * 256, 640, 2560, "ff", _FF),
+          (V * V * 1024, 768, 256, "f32", _DIT), (V * V * 1024, 256, 256, "gate", _DIT),
+          (V * V * 1024, 512, 256, "gelu", _DIT), (V * V * 1024, 256, 512, "gate", _DIT),
+          (V * 1024, 768, 256, "none", _DIT))),
+    (1024, 1280, 1280, "res_map", "forms", _BIGC), (1024, 10240, 1280, "geglu", "forms", _BIGC),
+    (1024, 1280, 5120, "ff1", "forms", _BIGC),
+]
+
+
+def gemm_checks(rnd):
+    """The wgmma GEMM against its plain version at every GEMM_ROWS shape
+    (1 bf16 ulp of max|plain| and a mean of 1e-4 x max|plain| for bf16
+    outputs, the residual stream's 1e-4 x max(1, max|plain|) for fp32 ones),
+    timed beside block.cu's wmma tile on the same operands, the plain version
+    and torch.matmul (cuBLAS, the bare product), all in device time
+    (device_ms: at the smaller shapes one call's host path outlasts the
+    kernel)."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    bf = torch.bfloat16
+    rows = {}
+    log(" site GEMM (gemm_sm90.cu)")
+    for M, N, K, epi, phase, src in GEMM_ROWS:
+        a, w = rnd(M, K, dt=bf), rnd(N, K, std=K**-0.5, dt=bf)
+        kw = dict(bias=None if epi == "qkv" else rnd(N, std=0.1))
+        act = {"geglu": K3.ACT_GEGLU, "gelu": K3.ACT_GELU}.get(epi, K3.ACT_NONE)
+        n_out = N // 2 if act == K3.ACT_GEGLU else N
+        res = None
+        if epi in ("res_row", "res_map"):
+            div = 1024 if epi == "res_row" else 1  # attn2 a row per 32^2 image
+            kw.update(res1=rnd(M, n_out, dt=bf), res2=rnd(M // div, n_out, dt=bf), res2_div=div, steps=True)
+        elif epi in ("ff", "ff1"):
+            kw.update(res1=rnd(M, n_out, dt=bf), steps=epi == "ff")
+        elif epi == "geglu":
+            kw.update(steps=True)
+        elif epi == "gate":  # in place on the fp32 stream
+            res = rnd(M, n_out)
+            kw.update(gate=rnd(n_out, std=0.5))
+        elif epi == "f32":
+            kw.update(out_dtype=torch.float32)
+        kw["act"] = act
+
+        buf = None if res is None else res.clone()
+
+        def run(route, plain=False, fresh=True):
+            """`fresh`: the in-place residual on a copy of `res`; else on
+            `buf`, drifting from call to call (for timing)."""
+            r = None if res is None else (res.clone() if fresh else buf)
+            extra = {} if r is None else dict(res1=r, out=r)
+            f = K3.gemm_plain if plain else (lambda *x, **k: K3.gemm(*x, route=route, **k))
+            return f(a, w, **kw, **extra)
+
+        got, want = run("sm90"), run(None, plain=True)
+        name = f"gemm_sm90 {M}x{N}x{K}"
+        what = f"{epi} epilogue, the {phase} path"
+        if got.dtype == bf:
+            err = compare_ulp(f"{name} ({what})", got, want, "both round the fp32 sums where the TPU kernels "
+                              "round; only roundings split by the sums' order differ", mean_tol=1e-4)
+        else:
+            err = compare(f"{name} ({what})", got, want, 1e-4, "fp32 sums in another order", torch.float32)
+        check(torch.equal(got, run("sm90")), f"{name}: two runs differ")
+        ms = device_ms(lambda: run("sm90", fresh=False), ITERS)
+        wmma_ms = device_ms(lambda: run("wmma", fresh=False), ITERS)
+        plain_ms = device_ms(lambda: run(None, plain=True, fresh=False), max(2, ITERS // 4))
+        lib_ms = device_ms(lambda: torch.matmul(a, w.t()), ITERS)
+        host_ms = time_ms(lambda: run("sm90", fresh=False), ITERS)
+        flops = 2 * M * N * K
+        out_bytes = M * n_out * got.element_size()
+        bms, by = bound(flops, nbytes(a, w, kw.get("bias"), kw.get("res1"), kw.get("res2"), kw.get("gate"), res)
+                        + out_bytes)
+        log(f"  {name}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; wmma tile {wmma_ms:.4f} ms "
+            f"({wmma_ms / ms:.2f}x); cuBLAS {lib_ms:.4f} ms; bound {bms:.4f} ms ({by}); back-to-back calls "
+            f"from the host {host_ms:.4f} ms a call")
+        check(ms < wmma_ms, f"{name}: the wgmma kernel ({ms:.4f} ms) is not faster than the wmma tile "
+                            f"({wmma_ms:.4f} ms)")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/gemm_sm90.cu", replaces=src,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                          wmma_ms=wmma_ms, shape=f"({M}, {K}) x ({N}, {K})^T, {what}",
+                          phase=phase, launch_key=("sm90", M, N, K))
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 def build_model(device: str = "cuda", cfg=None):
     """The full-width model (or `cfg`) with random weights from SEED, towers
@@ -677,10 +831,13 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "crossview_two_phase": 0,
         "transformer_block_single": 0,
         "transformer_block_big": 0,
+        "gemm_sm90": REQUESTS * steps * GEMMS_PER_STEP,
+        "gemm_wmma": 0,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    counts.update(_lib.GEMM_SHAPES)
     if profile:
         profile_steps(model, prepared, profile)
     B = len(scene["target_idx"])
@@ -756,10 +913,13 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
         "attention_site_n256": steps * SITES_PER_LEVEL,
         "crossview_two_phase": steps,
         "crossview": 0,
+        "gemm_sm90": steps * GEMMS_PER_STEP,
+        "gemm_wmma": 0,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    counts.update(_lib.GEMM_SHAPES)
     log(f"  eval: {t['sample'] / steps:.4f} s/step, {sum(t.values()):.3f} s/scene ({B} target views, {steps} steps, "
         f"CFG batch {2 * B}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
     return counts
@@ -800,7 +960,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
             torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1, dev)
-        counts = dict(_lib.LAUNCHES)
+        counts, shapes = dict(_lib.LAUNCHES), dict(_lib.GEMM_SHAPES)
         # one DDIM step (the first of a --forms-steps schedule) from the same
         # latents and noise, forms on, then off
         g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -836,10 +996,13 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "attention": 24,
         "crossview": steps,
         "crossview_two_phase": 0,
+        "gemm_sm90": steps * GEMMS_PER_STEP_FORMS,
+        "gemm_wmma": 0,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    counts.update(shapes)
     if profile:
         set_forms(True)
         try:
@@ -994,8 +1157,12 @@ def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
         log("  profile: the trace holds no device events (device time not measured)")
         return
     busy = sum(dev_us(e) for e in events) / 1e6
+    launches = sum(e.count for e in events)
+    copies = [e for e in events if "copy" in e.key.lower()]
     log(f"  profile of {steps} steps: wall {wall / steps * 1e3:.2f} ms/step (profiled), device busy "
-        f"{busy / steps * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% of wall")
+        f"{busy / steps * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% of wall; {launches / steps:.1f} kernel "
+        f"launches/step; copy kernels {sum(dev_us(e) for e in copies) / steps / 1e3:.3f} ms/step in "
+        f"{sum(e.count for e in copies) / steps:.1f} launches/step")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / steps / 1e3:9.3f} ms/step {e.count / steps:7.1f} calls/step  {e.key[:110]}")
 
@@ -1010,6 +1177,8 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
                          "route (slice) and with the switched forms on (forms)")
+    ap.add_argument("--profile-only", type=int, default=0, metavar="STEPS",
+                    help="only build the kernels and trace STEPS flagship steps on the default route")
     args = ap.parse_args()
 
     if not (HERE / "mvdfusion_tpu_torch" / "csrc").is_dir():
@@ -1043,6 +1212,14 @@ def main() -> int:
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log("  ptxas " + line.split("ptxas info    :")[-1].strip())
 
+    if args.profile_only:
+        with Phase("profile"):
+            model = build_model()
+            _, prepared, _ = answer(model, flagship_scene(model, torch.device("cuda")), 1, SEED + 1,
+                                    torch.device("cuda"))
+            profile_steps(model, prepared, args.profile_only)
+        return 0
+
     with Phase("kernels"):
         rows = kernel_checks()
 
@@ -1069,12 +1246,18 @@ def main() -> int:
 
     # launches of the phase that drives each kernel's path: the flagship
     # slice for K1-K4, the evaluation scene for the two-phase K4, the forms
-    # request for K5 and K6, the VAE phase for K7 and K8
+    # request for K5 and K6, the VAE phase for K7 and K8; the GEMM's by shape
+    # in the phase its row names
     phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
                 "transformer_block_big": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
                 "conv3x3": vae_counts}
+    by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts}
     for name, r in rows.items():
-        r["launches"] = phase_of.get(name, counts).get(name, 0)
+        if "launch_key" in r:
+            r["launches"] = by_phase[r.pop("phase")].get(r.pop("launch_key"), 0)
+            check(r["launches"] > 0, f"{name}: no launch at this shape on its path")
+        else:
+            r["launches"] = phase_of.get(name, counts).get(name, 0)
         r.pop("shape")
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

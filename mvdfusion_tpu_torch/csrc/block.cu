@@ -8,10 +8,11 @@
 //
 // Bound on the H100: the site's products are operations-bound (C=320 at
 // N=1024, B=16: ~60 GFLOP against ~40 MB); LayerNorm is bytes-bound. The
-// GEMM runs on the bf16 tensor cores through warp-level mma (nvcuda::wmma,
-// 16x16x16 fragments, fp32 accumulation) with 64x64 block tiles staged in
-// shared memory; it is far from the card's wgmma peak (no TMA, no pipelining)
-// and that is where a later PR gains. The epilogue applies bias, exact-erf
+// main path's bf16 products run on gemm_sm90.cu's wgmma kernel; this GEMM
+// (warp-level mma, nvcuda::wmma 16x16x16 fragments, fp32 accumulation, 64x64
+// block tiles, no TMA, no pipelining) takes fp32 operands and the bf16
+// shapes that kernel does not (ops/block.py::gemm_route). The epilogue
+// applies bias, exact-erf
 // GELU or GEGLU, a per-column gate, and up to two residual adds in fp32, so
 // no intermediate of the site makes an extra round trip; it rounds once, or
 // (`steps`) where the TPU kernel's bf16 operations round. The tile, the

@@ -8,7 +8,10 @@ aligned_attn_* names), i.e. the torch keys of convert/mapping.py's
 unet_mapping. The transformer sites take the form of ops/block.py that the
 reference takes (block_route): by default K3 at the 32^2 and 16^2 sites and
 the module path at the C=1280 sites; under MVDF_BLOCK_SINGLE=1 K5 at 32^2,
-under MVDF_BLOCK_BIGC=1 K6 at the C=1280 sites with 64 <= N <= 256.
+under MVDF_BLOCK_BIGC=1 K6 at the C=1280 sites with 64 <= N <= 256. On the
+card a site reads its weights prepared once (ops/block.py::
+prepared_site_weights, kept on the site's module until a parameter changes);
+on the CPU the plain versions read the parameters as they are.
 The up-path skip joins are concatenations: the reference's split-skip form
 computes the same function piece by piece for the TPU's layouts.
 """
@@ -31,7 +34,8 @@ from mvdfusion_tpu_torch.nn.layers import (
     silu,
     timestep_embedding,
 )
-from mvdfusion_tpu_torch.ops.block import BlockWeights, block_route, transformer_block
+from mvdfusion_tpu_torch.ops import _lib
+from mvdfusion_tpu_torch.ops.block import BlockWeights, block_route, prepared_site_weights, transformer_block
 from mvdfusion_tpu_torch.ops.image import area_downsample, nearest_upsample2x
 
 
@@ -94,20 +98,32 @@ def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int):
     return block_route(B, N, C, heads, blocks[0].ff.net[2].in_features)
 
 
-def _site_weights(norm, proj_in, proj_out, block: BasicTransformerBlock) -> BlockWeights:
+def _site_params(norm, proj_in, proj_out, block: BasicTransformerBlock) -> tuple:
+    """Every parameter a kernel site reads, in BlockWeights order with
+    attn1's q, k and v weights apart."""
     a1, ff = block.attn1, block.ff
-    mat = lambda m: m.weight.reshape(m.weight.shape[0], -1)  # Linear or 1x1 conv
-    return BlockWeights(
-        gn_w=norm.weight, gn_b=norm.bias,
-        pi_w=mat(proj_in), pi_b=proj_in.bias,
-        ln1_w=block.norm1.weight, ln1_b=block.norm1.bias,
-        qkv_w=torch.cat([a1.to_q.weight, a1.to_k.weight, a1.to_v.weight], dim=0),
-        out_w=a1.to_out[0].weight, out_b=a1.to_out[0].bias,
-        ln3_w=block.norm3.weight, ln3_b=block.norm3.bias,
-        g_w=ff.net[0].proj.weight, g_b=ff.net[0].proj.bias,
-        f_w=ff.net[2].weight, f_b=ff.net[2].bias,
-        po_w=mat(proj_out), po_b=proj_out.bias,
-    )
+    return (norm.weight, norm.bias, proj_in.weight, proj_in.bias, block.norm1.weight, block.norm1.bias,
+            a1.to_q.weight, a1.to_k.weight, a1.to_v.weight, a1.to_out[0].weight, a1.to_out[0].bias,
+            block.norm3.weight, block.norm3.bias, ff.net[0].proj.weight, ff.net[0].proj.bias,
+            ff.net[2].weight, ff.net[2].bias, proj_out.weight, proj_out.bias)
+
+
+def _site_weights(p: tuple) -> BlockWeights:
+    """_site_params as BlockWeights: the 1x1 convs' kernels as matrices, qkv
+    concatenated."""
+    mat = lambda w: w.reshape(w.shape[0], -1)  # Linear or 1x1 conv
+    return BlockWeights(p[0], p[1], mat(p[2]), p[3], p[4], p[5], torch.cat(p[6:9], dim=0), *p[9:17], mat(p[17]),
+                        p[18])
+
+
+def _kernel_site(module, x, a2, params, dt, form):
+    """A site on its kernel form: x (B, H, W, C) -> (B, H, W, C)."""
+    B, H, W, C = x.shape
+    if _lib.reads_prepared(x):
+        w = prepared_site_weights(module, params, lambda: _site_weights(params), dt)
+    else:
+        w = _site_weights(params)
+    return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, module.heads, form).reshape(B, H, W, C)
 
 
 class SpatialTransformer(nn.Module):
@@ -130,9 +146,8 @@ class SpatialTransformer(nn.Module):
         form = _site_form(blk, context.shape[1] == 1, B, H * W, C, self.heads)
         if form:
             a2 = _attn2_contribution(blk[0], context[:, 0])
-            w = _site_weights(self.norm, self.proj_in, self.proj_out, blk[0])
-            dt = self.proj_in.weight.dtype
-            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads, form).reshape(B, H, W, C)
+            params = _site_params(self.norm, self.proj_in, self.proj_out, blk[0])
+            return _kernel_site(self, x, a2, params, self.proj_in.weight.dtype, form)
         h = self.proj_in(self.norm(x)).reshape(B, H * W, -1)
         for b in blk:
             h = b(h, context)
@@ -162,9 +177,9 @@ class ViewAlignedFeatureTransformer(nn.Module):
         form = _site_form(blk, D == 1, B, H * W, C, self.heads)
         if form:
             a2 = _attn2_contribution(blk[0], volume.reshape(B, H * W, Cc))
-            w = _site_weights(self.aligned_attn_norm, self.aligned_attn_proj_in, self.aligned_attn_proj_out, blk[0])
-            dt = self.aligned_attn_proj_in.weight.dtype
-            return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, self.heads, form).reshape(B, H, W, C)
+            params = _site_params(self.aligned_attn_norm, self.aligned_attn_proj_in, self.aligned_attn_proj_out,
+                                  blk[0])
+            return _kernel_site(self, x, a2, params, self.aligned_attn_proj_in.weight.dtype, form)
         ctx = volume.reshape(B * H * W, D, Cc)
         h = self.aligned_attn_proj_in(self.aligned_attn_norm(x).reshape(B, H * W, C))
         for b in blk:

@@ -31,10 +31,12 @@ from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
 from mvdfusion_tpu_torch.geometry.harmonics import harmonic_embed, harmonic_frequencies
 from mvdfusion_tpu_torch.geometry.rays import pixel_rays, plucker_coords, rays_to_points
 from mvdfusion_tpu_torch.nn.layers import Linear, Mlp, TimmAttention, silu
+from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.crossview import (
     AggregatorWeights,
     GeoWeights,
     crossview_aggregate,
+    prepared_crossview_weights,
     should_fuse_crossview,
 )
 
@@ -103,10 +105,21 @@ class GridAttn(nn.Module):
         y = (a.to(dt).float() @ lin.weight.float().t()).to(dt) + lin.bias.to(dt)
         return (0.5 * y) * torch.special.erfc(-y * torch.tensor(math.sqrt(0.5), dtype=dt))
 
-    def kernel_weights(self, t_embed0: torch.Tensor):
-        """K4's operands from this module's params: the geometric rows `kall`
-        in the kernel's [raw | sin freq-major | cos] order, and the DiT
-        weights with the shared-t adaLN modulation precomputed (fp32)."""
+    def _kernel_params(self) -> tuple:
+        """Every parameter that _static_kernel_weights reads."""
+        wl = self.aggregation_transformer.weight_layer
+        per_layer = (
+            t for b in self.aggregation_transformer.layer_list
+            for t in (b.attn.qkv.weight, b.attn.qkv.bias, b.attn.proj.weight, b.attn.proj.bias,
+                      b.mlp.fc1.weight, b.mlp.fc1.bias, b.mlp.fc2.weight, b.mlp.fc2.bias)
+        )
+        return (self.pre_layer_b[0].weight, *per_layer, wl.weight, wl.bias, self.final_layer_b.weight,
+                self.final_layer_b.bias)
+
+    def _static_kernel_weights(self):
+        """K4's operands that depend on the parameters alone: the geometric
+        rows `kall` in the kernel's [raw | sin freq-major | cos] order, and the
+        DiT weights (mods left None)."""
         nh, hs = N_HARMONIC, self.hidden_size
         P90 = self.part_weight(2).t()  # (90, hid): harmonic layout per dim: n sin, n cos ... then raw 6
         P15 = self.part_weight(3).t()  # (15, hid)
@@ -119,21 +132,34 @@ class GridAttn(nn.Module):
         ).reshape(7 * nh, hs)
         geo = GeoWeights(kall=torch.cat([kx, sin_all, cos_all], dim=0), kmask=self.part_weight(6)[:, 0])
         layers = self.aggregation_transformer.layer_list
-        cs = silu(t_embed0.to(self.pre_layer_b[0].weight.dtype).float())  # shared-t conditioning in dt
-        mods = torch.stack([
-            F.linear(cs, b.adaLN_modulation[1].weight.float(), b.adaLN_modulation[1].bias.float()).reshape(6, hs)
-            for b in layers
-        ])
         wl = self.aggregation_transformer.weight_layer
         agg = AggregatorWeights(
             qkv_w=[b.attn.qkv.weight for b in layers], qkv_b=[b.attn.qkv.bias for b in layers],
             proj_w=[b.attn.proj.weight for b in layers], proj_b=[b.attn.proj.bias for b in layers],
             fc1_w=[b.mlp.fc1.weight for b in layers], fc1_b=[b.mlp.fc1.bias for b in layers],
             fc2_w=[b.mlp.fc2.weight for b in layers], fc2_b=[b.mlp.fc2.bias for b in layers],
-            mods=mods, wl_w=wl.weight, wl_b=wl.bias,
+            mods=None, wl_w=wl.weight, wl_b=wl.bias,
             fin_w=self.final_layer_b.weight, fin_b=self.final_layer_b.bias,
         )
         return geo, agg
+
+    def kernel_weights(self, t_embed0: torch.Tensor, prepared: bool = False):
+        """K4's operands from this module's params: _static_kernel_weights
+        (with `prepared`, their prepared form, kept on this module until a
+        parameter changes: ops/crossview.py::prepared_crossview_weights) and
+        the shared-t adaLN modulation of this step (fp32)."""
+        dt = self.pre_layer_b[0].weight.dtype
+        cs = silu(t_embed0.to(dt).float())  # shared-t conditioning in dt
+        mods = torch.stack([
+            F.linear(cs, b.adaLN_modulation[1].weight.float(), b.adaLN_modulation[1].bias.float())
+            .reshape(6, self.hidden_size)
+            for b in self.aggregation_transformer.layer_list
+        ])
+        if prepared:
+            geo, agg = prepared_crossview_weights(self, self._kernel_params(), self._static_kernel_weights, dt)
+        else:
+            geo, agg = self._static_kernel_weights()
+        return geo, agg._replace(mods=mods)
 
     def forward(
         self,
@@ -188,7 +214,7 @@ class GridAttn(nn.Module):
 
         if not should_fuse_crossview(V, H, W, self.hidden_size):
             raise NotImplementedError(f"GridAttn at V={V}, {H}x{W}, hid={self.hidden_size} is not ported yet")
-        geo, agg = self.kernel_weights(t_embed[0])
+        geo, agg = self.kernel_weights(t_embed[0], prepared=_lib.reads_prepared(noisy_latents))
         frustum = crossview_aggregate(
             -ndc_all[..., :2], pts_flat[0], centers, predict_mask, acc_b[0], view_feat_p, geo, agg,
             self.num_heads, harmonic_frequencies(N_HARMONIC, OMEGA0),

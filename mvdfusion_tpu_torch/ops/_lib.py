@@ -10,7 +10,8 @@ pointers and the current CUDA stream and returns ``cudaGetLastError()``;
 :func:`call` raises on a non-zero code.
 
 ``LAUNCHES`` counts, per wrapper, the launches of its kernel; a wrapper adds
-one exactly where it launches and nowhere else.
+one exactly where it launches and nowhere else. ``GEMM_SHAPES`` breaks the
+GEMM's launches down by route and shape (ops/block.py::gemm).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+GEMM_SHAPES: collections.Counter = collections.Counter()
 
 # entry point -> argument kinds: p pointer, i int32, l int64, f float32
 _SIGNATURES = {
@@ -43,6 +45,8 @@ _SIGNATURES = {
     "mvdf_attention": "ppppiiiiillllllllfiip",
     "mvdf_layernorm": "pipppiiifp",
     "mvdf_gemm": "ppppipipiipiiiiiip",
+    "mvdf_tma_desc": "piiip",
+    "mvdf_gemm_sm90": "ppppipipiipiiiiiip",
     "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "iiiii" + "ff" + "ip",
     "mvdf_big_attention": "pppiiiifip",
     "mvdf_cv_gather": "pppppppppipiiiiiip",
@@ -59,6 +63,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    GEMM_SHAPES.clear()
 
 
 def nvcc_path() -> str:
@@ -151,6 +156,34 @@ def call(name: str, *args) -> None:
     rc = getattr(L, name)(*(ptr(a) if isinstance(a, torch.Tensor) else a for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} ({L.mvdf_error_string(rc).decode()})")
+
+
+def tma_desc(t, box_rows: int):
+    """The tensor map of a CUDA (rows, cols) bf16 matrix read in boxes of 64
+    columns x box_rows rows (csrc/gemm_sm90.cu), as a 128-byte host buffer."""
+    buf = ctypes.create_string_buffer(128)
+    rc = lib().mvdf_tma_desc(ptr(t), t.shape[0], t.shape[1], box_rows, buf)
+    if rc != 0:
+        raise RuntimeError(f"mvdf_tma_desc: CUDA error {rc} ({lib().mvdf_error_string(rc).decode()})")
+    return buf
+
+
+def reads_prepared(t) -> bool:
+    """Whether the model's kernel sites read their cached prepared weights
+    for activations `t`: on the card (the plain versions on the CPU read the
+    parameters as they are)."""
+    return t.is_cuda
+
+
+def cached(owner, attr: str, params, dtype, build):
+    """build(), kept on `owner` under `attr` until the data pointer, version
+    or dtype of one of `params` changes, or `dtype` does."""
+    key = (dtype, *((p.data_ptr(), p._version, p.dtype) for p in params))
+    hit = getattr(owner, attr, None)
+    if hit is None or hit[0] != key:
+        hit = (key, build())
+        setattr(owner, attr, hit)
+    return hit[1]
 
 
 def ptr(t) -> int | None:

@@ -7,15 +7,15 @@ GEGLU with exact erf, FF out, residual, proj_out, + x_in. `block_route`
 picks the form where the reference does:
 - split (K3, the default): _attn_kernel + _ff_kernel. On the card a short
   sequence of hand-written kernels: K1 for the site GroupNorm, csrc/block.cu's
-  LayerNorm and its tensor-core GEMM with a fused epilogue for every product
-  (bias, residuals, the attn2 add, GEGLU), and K2 for the self-attention on
-  the packed qkv.
+  LayerNorm, the site GEMM (`gemm`: csrc/gemm_sm90.cu's wgmma kernel in bf16)
+  with a fused epilogue for every product (bias, residuals, the attn2 add,
+  GEGLU), and K2 for the self-attention on the packed qkv.
 - one kernel (K5, under MVDF_BLOCK_SINGLE=1 where the site's weights fit the
   reference's budget: the C=320 32^2 sites): _block_kernel. On the card one
   cooperative launch of csrc/blockforms.cu's site_kernel over the same tiles.
 - big-C (K6, under MVDF_BLOCK_BIGC=1: the C=1280 sites at 64 <= N <= 256):
   _pi_kernel, _bigattn_stream_kernel, _h2_kernel and _ff_stream_kernel. On
-  the card K1, block.cu's LayerNorm and GEMM, and csrc/blockforms.cu's
+  the card K1, block.cu's LayerNorm, the site GEMM, and csrc/blockforms.cu's
   bigattn_kernel, which projects each head's q, k and v and attends without
   writing qkv to device memory.
 The plain versions round where the TPU kernels round in bf16: every product
@@ -23,6 +23,12 @@ once (fp32 sum + fp32 bias), each residual add, the softmax probabilities,
 and GEGLU's factors; the big-C form rounds h2 + FF once (its streamed fp32
 accumulator). The card's GEMM epilogue rounds at the same points (`steps`).
 No product goes to torch.matmul or cuBLAS on the card.
+
+On the card the launchers read a site's weights prepared once
+(`prepare_site_weights`: matrices in the activation dtype, qkv concatenated,
+GEGLU's rows packed, vectors fp32); nn/unet.py keeps them on the site's
+module (`prepared_site_weights`) until a parameter changes. The plain
+versions read the parameters as they are (BlockWeights).
 
 The GEMM and LayerNorm launchers here also serve K4 (ops/crossview.py).
 """
@@ -43,7 +49,8 @@ _GN_GROUPS = 32
 _GN_EPS = 1e-6
 _BIG_C_MIN = 768
 ACT_NONE, ACT_GELU, ACT_GEGLU = 0, 1, 2
-_GEGLU_HALF = 32  # half the GEMM's 64-column tile
+_GEGLU_HALF = 32  # half of each 64-column group of the GEMM's tiles
+_SQRT_HALF = 0.7071067811865476
 
 
 class BlockWeights(NamedTuple):
@@ -66,6 +73,14 @@ class BlockWeights(NamedTuple):
     f_b: torch.Tensor
     po_w: torch.Tensor  # (C, C) proj_out
     po_b: torch.Tensor
+
+
+class PreparedSite(BlockWeights):
+    """A site's weights as the card's kernels read them (prepare_site_weights):
+    matrices in the activation dtype and contiguous, qkv_w the concatenated
+    [Wq; Wk; Wv], g_w and g_b packed by pack_geglu, every vector fp32."""
+
+    __slots__ = ()
 
 
 # the one-kernel form's weight budget under MVDF_BLOCK_SINGLE=1 (the
@@ -133,8 +148,9 @@ def layernorm(x, weight=None, bias=None, eps: float = _LN_EPS, out_dtype=None):
 
 
 def pack_geglu(w, b):
-    """Reorder GEGLU rows [value; gate] so each 64-row GEMM tile holds 32
-    value rows followed by their 32 gate rows."""
+    """Reorder GEGLU rows [value; gate] so each 64-row group holds 32 value
+    rows followed by their 32 gate rows (the GEMM's tiles are 64 columns, or
+    a multiple of 64, wide)."""
     inner = w.shape[0] // 2
     if inner % _GEGLU_HALF:
         raise ValueError(f"GEGLU inner dim {inner} is not a multiple of {_GEGLU_HALF}")
@@ -144,9 +160,84 @@ def pack_geglu(w, b):
     return wp.contiguous(), bp
 
 
+def unpack_geglu(wp, bp):
+    """The inverse of pack_geglu: rows [value; gate] again."""
+    inner = wp.shape[0] // 2
+    t = inner // _GEGLU_HALF
+    w = wp.reshape(t, 2, _GEGLU_HALF, wp.shape[1]).transpose(0, 1).reshape(2 * inner, wp.shape[1])
+    return w, bp.reshape(t, 2, _GEGLU_HALF).transpose(0, 1).reshape(2 * inner)
+
+
+def _gelu_erf(v):
+    """csrc/common.cuh's gelu_erf on fp32: (0.5 v) (1 + erf(v / sqrt 2))."""
+    return 0.5 * v * (1.0 + torch.erf(v * _SQRT_HALF))
+
+
+def gemm_plain(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int = 1, gate=None,
+               act: int = ACT_NONE, steps: bool = False, out=None):
+    """Plain version of `gemm`: the product of a and w (in a's dtype) summed in
+    fp32, then the kernels' epilogue in fp32 with their rounding points (the
+    TPU kernels' _mm and bf16 adds as _site_plain computes them)."""
+    odt = out.dtype if out is not None else (out_dtype or a.dtype)
+    rnd = (lambda v: v.to(odt).float()) if steps and odt == torch.bfloat16 else (lambda v: v)
+    v = a.float() @ w.to(a.dtype).float().t()
+    if bias is not None:
+        v = v + bias.float()
+    if act == ACT_GEGLU:
+        M, N = v.shape
+        v = v.reshape(M, N // (2 * _GEGLU_HALF), 2, _GEGLU_HALF)
+        val, g = v[:, :, 0].reshape(M, N // 2), v[:, :, 1].reshape(M, N // 2)
+        if steps:
+            g = rnd(g)
+            v = rnd(val) * rnd(rnd(g * 0.5) * rnd(1.0 + torch.erf(g * _SQRT_HALF)))
+        else:
+            v = val * _gelu_erf(g)
+    elif act == ACT_GELU:
+        v = _gelu_erf(v)
+    if gate is not None:
+        v = v * gate.float()
+    if res1 is not None:
+        v = rnd(v) + res1.float().reshape(v.shape)
+    if res2 is not None:
+        rows = torch.arange(v.shape[0], device=v.device) // max(res2_div, 1)
+        v = rnd(v) + res2.float().reshape(-1, v.shape[1])[rows]
+    if out is None:
+        return v.to(odt)
+    out.copy_(v.reshape(out.shape))
+    return out
+
+
+def gemm_route(dtype, N: int, K: int, act: int = ACT_NONE) -> str:
+    """The GEMM kernel for these operands, chosen explicitly: "sm90"
+    (csrc/gemm_sm90.cu, wgmma) for bf16 with K % 8 == 0 and an output width
+    that is a multiple of 4, "wmma" (block.cu's tile) for the other bf16
+    shapes, "f32" (block.cu's CUDA-core tile) for fp32. Each counts under
+    gemm_<route>."""
+    if dtype == torch.float32:
+        return "f32"
+    n_out = N // 2 if act == ACT_GEGLU else N
+    return "sm90" if K % 8 == 0 and n_out % 4 == 0 else "wmma"
+
+
+GEMM_TILE_N = 128  # the wgmma kernel's tile width (csrc/gemm_sm90.cu)
+
+
+def _weight_desc(w, bn: int):
+    """W's tensor map for tile width bn, made once and kept on the tensor
+    (a prepared weight lives as long as its site's cache)."""
+    key = (w.data_ptr(), tuple(w.shape), bn)
+    hit = getattr(w, "_mvdf_tma", None)
+    if hit is None or hit[0] != key:
+        hit = (key, _lib.tma_desc(w, bn))
+        w._mvdf_tma = hit
+    return hit[1]
+
+
 def gemm(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int = 1, gate=None,
-         act: int = ACT_NONE, steps: bool = False, out=None):
-    """csrc/block.cu GEMM: epilogue(a (M, K) @ w (N, K)^T) on CUDA tensors.
+         act: int = ACT_NONE, steps: bool = False, out=None, route: str | None = None):
+    """The site GEMM: epilogue(a (M, K) @ w (N, K)^T); its CUDA kernel for CUDA
+    tensors (`route`: gemm_route's choice, or "wmma" to take block.cu's tile
+    for a bf16 comparison), gemm_plain for CPU tensors.
 
     epilogue: + bias, then GELU (act=1) or GEGLU over packed rows (act=2, see
     pack_geglu; output has N/2 columns), then * gate[col], + res1[row],
@@ -154,6 +245,9 @@ def gemm(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int
     rounded to the output type after the bias, after each residual and at
     GEGLU's factors, as the TPU site kernels' bf16 operations round. `out`
     may alias `res1` (an in-place residual update)."""
+    if not a.is_cuda:
+        return gemm_plain(a, w, bias, out_dtype=out_dtype, res1=res1, res2=res2, res2_div=res2_div, gate=gate,
+                          act=act, steps=steps, out=out)
     M, K = a.shape
     N = w.shape[0]
     if w.shape[1] != K or w.dtype != a.dtype:
@@ -164,18 +258,55 @@ def gemm(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int
         raise ValueError("the bf16 GEMM needs K % 8 == 0 and 16-byte aligned operands")
     if act == ACT_GEGLU and N % 64:
         raise ValueError("GEGLU needs N % 64 == 0")
+    route = route or gemm_route(a.dtype, N, K, act)
+    if (route == "f32") != (a.dtype == torch.float32) or route not in ("sm90", "wmma", "f32"):
+        raise ValueError(f"GEMM route {route!r} does not take {a.dtype} operands")
     n_out = N // 2 if act == ACT_GEGLU else N
     if out is None:
         out = torch.empty(M, n_out, dtype=out_dtype or a.dtype, device=a.device)
     for r, rows in ((res1, M), (res2, M // max(res2_div, 1))):
         if r is not None and (r.shape[-1] != n_out or r.numel() != rows * n_out):
             raise ValueError(f"residual {tuple(r.shape)} does not match ({rows}, {n_out})")
-    _lib.call(
-        "mvdf_gemm", a, w, _f32(bias), out, _lib.is_bf16(out),
-        res1, _lib.is_bf16(res1), res2, _lib.is_bf16(res2), int(res2_div),
-        _f32(gate), int(act), int(steps), M, N, K, _lib.dtype_code(a.dtype),
-    )
+    epilogue = (_f32(bias), out, _lib.is_bf16(out), res1, _lib.is_bf16(res1), res2, _lib.is_bf16(res2),
+                int(res2_div), _f32(gate), int(act), int(steps), M, N, K)
+    if route == "sm90":
+        if any(t is not None and t.data_ptr() % 16 for t in (epilogue[0], out, res1, res2, epilogue[8])):
+            raise ValueError("the wgmma GEMM's epilogue reads and writes 16-byte vectors: bias, gate, out and "
+                             "residuals 16-byte aligned")
+        _lib.call("mvdf_gemm_sm90", a, _weight_desc(w, GEMM_TILE_N), *epilogue, GEMM_TILE_N)
+    else:
+        _lib.call("mvdf_gemm", a, w, *epilogue, _lib.dtype_code(a.dtype))
+    _lib.LAUNCHES[f"gemm_{route}"] += 1
+    _lib.GEMM_SHAPES[(route, M, N, K)] += 1
     return out
+
+
+def prepare_site_weights(w: BlockWeights, dtype) -> PreparedSite:
+    """w as the card's kernels read it, for activations of `dtype`: matrices
+    cast to dtype and contiguous (aliases where they already are), GEGLU's
+    rows and bias packed, vectors fp32."""
+    mat = lambda t: t.detach().to(dtype).contiguous()
+    vec = lambda t: t.detach().float().contiguous()
+    g_w, g_b = pack_geglu(mat(w.g_w), vec(w.g_b))
+    return PreparedSite(
+        gn_w=vec(w.gn_w), gn_b=vec(w.gn_b), pi_w=mat(w.pi_w), pi_b=vec(w.pi_b), ln1_w=vec(w.ln1_w),
+        ln1_b=vec(w.ln1_b), qkv_w=mat(w.qkv_w), out_w=mat(w.out_w), out_b=vec(w.out_b), ln3_w=vec(w.ln3_w),
+        ln3_b=vec(w.ln3_b), g_w=g_w, g_b=g_b, f_w=mat(w.f_w), f_b=vec(w.f_b), po_w=mat(w.po_w), po_b=vec(w.po_b),
+    )
+
+
+def unprepared_site_weights(w: PreparedSite) -> BlockWeights:
+    """The plain versions' view of prepared weights: GEGLU's rows and bias
+    unpacked (exactly: a reordering), everything else as prepared."""
+    g_w, g_b = unpack_geglu(w.g_w, w.g_b)
+    return BlockWeights(*w)._replace(g_w=g_w, g_b=g_b)
+
+
+def prepared_site_weights(owner, params, build, dtype) -> PreparedSite:
+    """prepare_site_weights(build(), dtype), kept on `owner` (the site's
+    module) until the data pointer, version or dtype of one of `params`
+    (every parameter that `build` reads) changes, or dtype does."""
+    return _lib.cached(owner, "_mvdf_site_weights", params, dtype, lambda: prepare_site_weights(build(), dtype))
 
 
 # ------------------------------------------------------------------ the site
@@ -242,24 +373,25 @@ def transformer_block_big_plain(x_in, attn2_add, w: BlockWeights, heads: int):
 
 
 def _operands(x_in, attn2_add, w: BlockWeights):
-    """x and attn2 contiguous in x's dtype, the res2 row divisor of attn2, the
-    matrices cast to that dtype and GEGLU's rows packed."""
+    """x and attn2 contiguous in x's dtype, the res2 row divisor of attn2, and
+    the weights prepared for that dtype (as they come if already prepared)."""
     B, N, C = x_in.shape
     dt = x_in.dtype
     if tuple(attn2_add.shape) not in ((B, C), (B, N, C)):
         raise ValueError(f"attn2 term {tuple(attn2_add.shape)} is neither ({B}, {C}) nor ({B}, {N}, {C})")
-    cast = lambda t: t.to(dt).contiguous()
-    g_w, g_b = pack_geglu(cast(w.g_w), w.g_b)
-    mats = dict(pi_w=cast(w.pi_w), qkv_w=cast(w.qkv_w), out_w=cast(w.out_w), g_w=g_w, g_b=g_b,
-                f_w=cast(w.f_w), po_w=cast(w.po_w))
+    if not isinstance(w, PreparedSite):
+        w = prepare_site_weights(w, dt)
+    elif w.pi_w.dtype != dt:
+        raise ValueError(f"site weights prepared for {w.pi_w.dtype}, activations in {dt}")
     a2 = attn2_add.to(dt).contiguous()
-    return x_in.contiguous(), a2, 1 if a2.ndim == 3 else N, w._replace(**mats)
+    return x_in.contiguous(), a2, 1 if a2.ndim == 3 else N, w
 
 
 def launch_transformer_block(x_in, attn2_add, w: BlockWeights, heads: int):
-    """K3, the split form on the card: K1, LayerNorm, GEMMs and K2. Counts
-    only its K2 launch, under attention_site_n{N} (K3's own count is
-    transformer_block's)."""
+    """K3, the split form on the card: K1, LayerNorm, GEMMs and K2, on the
+    weights prepared (as they come if already prepared). Counts its K2 launch
+    under attention_site_n{N}; the GEMMs count themselves (gemm_<route>) and
+    K3's own count is transformer_block's."""
     B, N, C = x_in.shape
     M, dh = B * N, C // heads
     x, a2, a2_div, w = _operands(x_in, attn2_add, w)
@@ -322,9 +454,9 @@ def launch_transformer_block_single(x_in, attn2_add, w: BlockWeights, heads: int
     x, a2, a2_div, w = _operands(x_in, attn2_add, w)
     out = torch.empty_like(x)
     _lib.call(
-        "mvdf_block_single", x, a2, a2_div, _f32(w.gn_w), _f32(w.gn_b), w.pi_w, _f32(w.pi_b), _f32(w.ln1_w),
-        _f32(w.ln1_b), w.qkv_w, w.out_w, _f32(w.out_b), _f32(w.ln3_w), _f32(w.ln3_b), w.g_w, _f32(w.g_b),
-        w.f_w, _f32(w.f_b), w.po_w, _f32(w.po_b), out, *_site_workspace(B, N, C, inner, x.dtype, x.device),
+        "mvdf_block_single", x, a2, a2_div, w.gn_w, w.gn_b, w.pi_w, w.pi_b, w.ln1_w, w.ln1_b, w.qkv_w, w.out_w,
+        w.out_b, w.ln3_w, w.ln3_b, w.g_w, w.g_b, w.f_w, w.f_b, w.po_w, w.po_b, out,
+        *_site_workspace(B, N, C, inner, x.dtype, x.device),
         B, N, C, heads, inner, float(_GN_EPS), float(_LN_EPS), _lib.dtype_code(x.dtype),
     )
     return out
@@ -369,10 +501,11 @@ _FORMS = {
 
 def transformer_block(x_in, attn2_add, w: BlockWeights, heads: int, form: str):
     """One transformer site in `form` (block_route): its CUDA kernels for CUDA
-    tensors, its plain version for CPU tensors."""
+    tensors, its plain version for CPU tensors. `w` as the parameters are
+    (BlockWeights) or prepared (PreparedSite)."""
     plain, launch, counter = _FORMS[form]
     if not x_in.is_cuda:
-        return plain(x_in, attn2_add, w, heads)
+        return plain(x_in, attn2_add, unprepared_site_weights(w) if isinstance(w, PreparedSite) else w, heads)
     out = launch(x_in, attn2_add, w, heads)
     _lib.LAUNCHES[counter] += 1
     return out

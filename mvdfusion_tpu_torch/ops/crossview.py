@@ -21,7 +21,11 @@ second elementwise kernel turns into fp32 GELU(tok + b_acc) (two-phase form);
 each DiT layer is then LayerNorm -> GEMM (qkv, fp32) -> per-point view
 attention -> GEMM with a gated in-place residual -> LayerNorm -> GEMM + GELU
 -> GEMM with a gated residual; then the pool kernel and the final GEMM. The
-residual stream stays fp32 as in the reference kernels.
+residual stream stays fp32 as in the reference kernels. The GEMMs are
+ops/block.py's site GEMM (csrc/gemm_sm90.cu in bf16). The kernels read the
+weights prepared once (`prepare_crossview_weights`: matrices in the maps'
+dtype, vectors fp32); nn/viewattn.py keeps them on its module
+(`prepared_crossview_weights`) until a parameter changes.
 """
 
 from __future__ import annotations
@@ -54,6 +58,14 @@ class AggregatorWeights(NamedTuple):
     wl_b: torch.Tensor  # (1,)
     fin_w: torch.Tensor  # (out_dim, hid)
     fin_b: torch.Tensor
+
+
+class PreparedAggregator(AggregatorWeights):
+    """AggregatorWeights as the card's kernels read them
+    (prepare_crossview_weights): matrices in the maps' dtype and contiguous,
+    biases fp32; the same layout, so the plain versions read them too."""
+
+    __slots__ = ()
 
 
 class GeoWeights(NamedTuple):
@@ -182,43 +194,68 @@ def crossview_two_phase_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeig
     return _dit_pool_plain(x, w, heads, maps_p.dtype)
 
 
-def _launch_dit_pool(x, N: int, V: int, w: AggregatorWeights, heads: int, dt):
+def prepare_crossview_weights(kg: GeoWeights, w: AggregatorWeights, dtype):
+    """(kg, w) as the card's kernels read them for maps of `dtype`: matrices
+    cast to dtype and contiguous (aliases where they already are), vectors
+    fp32; w's per-step mods as they come. Prepared weights pass unchanged."""
+    mat = lambda t: t.detach().to(dtype).contiguous()
+    vec = lambda t: t.detach().float().contiguous()
+    if not isinstance(w, PreparedAggregator):
+        w = PreparedAggregator(
+            qkv_w=[mat(t) for t in w.qkv_w], qkv_b=[vec(t) for t in w.qkv_b],
+            proj_w=[mat(t) for t in w.proj_w], proj_b=[vec(t) for t in w.proj_b],
+            fc1_w=[mat(t) for t in w.fc1_w], fc1_b=[vec(t) for t in w.fc1_b],
+            fc2_w=[mat(t) for t in w.fc2_w], fc2_b=[vec(t) for t in w.fc2_b],
+            mods=w.mods, wl_w=mat(w.wl_w), wl_b=vec(w.wl_b), fin_w=mat(w.fin_w), fin_b=vec(w.fin_b),
+        )
+    elif w.fin_w.dtype != dtype:
+        raise ValueError(f"aggregator weights prepared for {w.fin_w.dtype}, maps in {dtype}")
+    return GeoWeights(kall=mat(kg.kall), kmask=vec(kg.kmask)), w
+
+
+def prepared_crossview_weights(owner, params, build, dtype):
+    """prepare_crossview_weights(*build(), dtype), kept on `owner` (GridAttn's
+    module) until the data pointer, version or dtype of one of `params`
+    (every parameter that `build` reads) changes, or dtype does."""
+    return _lib.cached(owner, "_mvdf_crossview_weights", params, dtype,
+                       lambda: prepare_crossview_weights(*build(), dtype))
+
+
+def _launch_dit_pool(x, N: int, V: int, w: PreparedAggregator, heads: int, dt):
     """x (N * V, hid) fp32 GELU'd tokens, updated in place -> (N, out_dim)."""
     hid = x.shape[-1]
     code = _lib.dtype_code(dt)
-    c = lambda t: t.to(dt).contiguous()
-    f = lambda t: t.float().contiguous()
     att = torch.empty(N * V, hid, dtype=dt, device=x.device)
     for l in range(len(w.qkv_w)):
-        m = f(w.mods[l])
+        m = w.mods[l].float()
         h = layernorm(x, 1 + m[1], m[0], _DIT_LN_EPS, out_dtype=dt)
-        qkv = gemm(h, c(w.qkv_w[l]), w.qkv_b[l], out_dtype=torch.float32)
+        qkv = gemm(h, w.qkv_w[l], w.qkv_b[l], out_dtype=torch.float32)
         _lib.call("mvdf_cv_attention", qkv, att, N, V, heads, hid // heads,
                   float((hid // heads) ** -0.5), code)
-        gemm(att, c(w.proj_w[l]), w.proj_b[l], gate=m[2], res1=x, out=x)
+        gemm(att, w.proj_w[l], w.proj_b[l], gate=m[2], res1=x, out=x)
         h = layernorm(x, 1 + m[4], m[3], _DIT_LN_EPS, out_dtype=dt)
-        h = gemm(h, c(w.fc1_w[l]), w.fc1_b[l], act=ACT_GELU)
-        gemm(h, c(w.fc2_w[l]), w.fc2_b[l], gate=m[5], res1=x, out=x)
+        h = gemm(h, w.fc1_w[l], w.fc1_b[l], act=ACT_GELU)
+        gemm(h, w.fc2_w[l], w.fc2_b[l], gate=m[5], res1=x, out=x)
     pooled = torch.empty(N, hid, dtype=dt, device=x.device)
-    _lib.call("mvdf_cv_pool", x, c(w.wl_w.reshape(-1)), f(w.wl_b.reshape(-1)),
-              pooled, N, V, hid, code)
-    return gemm(pooled, c(w.fin_w), w.fin_b)
+    _lib.call("mvdf_cv_pool", x, w.wl_w.reshape(-1), w.wl_b.reshape(-1), pooled, N, V, hid, code)
+    return gemm(pooled, w.fin_w, w.fin_b)
 
 
 def launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
                      heads: int, freqs: tuple):
     """K4's single form on the card: gather, DiT layers, pool and output
-    GEMM (no counting)."""
+    GEMM (no counting); kg and w as the parameters are or prepared."""
     V, N, _ = xy.shape
     _, H, W_, hid = maps_p.shape
     dt = maps_p.dtype
+    kg, w = prepare_crossview_weights(kg, w, dt)
     c = lambda t: t.to(dt).contiguous()
     f = lambda t: t.float().contiguous()
     x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
     freq_t = torch.tensor(freqs, dtype=torch.float32, device=maps_p.device)
     _lib.call(
         "mvdf_cv_gather", f(xy), f(pts), f(centers), f(mask),
-        c(b_acc), c(maps_p), c(kg.kall), f(kg.kmask),
+        c(b_acc), c(maps_p), kg.kall, kg.kmask,
         freq_t, len(freqs), x, V, N, H, W_, hid, _lib.dtype_code(dt),
     )
     return _launch_dit_pool(x, N, V, w, heads, dt)
@@ -245,10 +282,12 @@ def launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWei
                                heads: int, freqs: tuple):
     """K4's two-phase form on the card: phase-1 tokens in maps_p's dtype,
     GELU(tok + b_acc) into the fp32 stream, then the same DiT, pool and
-    output GEMM as the single form (no counting)."""
+    output GEMM as the single form (no counting); kg and w as the parameters
+    are or prepared."""
     V, N, _ = xy.shape
     hid = maps_p.shape[-1]
     dt = maps_p.dtype
+    kg, w = prepare_crossview_weights(kg, w, dt)
     tok = launch_gather_tokens(xy, pts, centers, mask, maps_p, kg, freqs)
     x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
     _lib.call("mvdf_cv_token_gelu", tok, b_acc.to(dt).contiguous(), x, N, V, hid, _lib.dtype_code(dt))

@@ -8,9 +8,10 @@ machine without it:
 
 Tolerance: max|kernel - plain| <= tol x max(1, max|plain|), tol 1e-4 in fp32
 (the same math in another sum order) and 3e-2 in bf16 (roundings at other
-points of chained bf16 products); K2's bf16 tensor-core tile, which rounds
-where its plain version rounds, 1 bf16 ulp of max|plain| and a mean of 1e-4
-x max|plain|. TF32 is off for the plain versions.
+points of chained bf16 products); K2's bf16 tensor-core tile and the wgmma
+site GEMM, which round where their plain versions round, 1 bf16 ulp of
+max|plain| and a mean of 1e-4 x max|plain| (the GEMM's fp32 outputs:
+1e-4 x max(1, max|plain|)). TF32 is off for the plain versions.
 """
 
 import math
@@ -241,3 +242,89 @@ def test_gpu_k8_conv3x3_matches_plain(cuda, dt):
         ones, zeros = torch.ones_like(a), torch.zeros_like(b)
         _gpu_close(K8.launch_conv3x3(x, ones, zeros, w9, bias, row, None, "none"),
                    K8.conv3x3_plain(x, ones, zeros, w, bias, row, None, "none"), dt)
+
+
+# (M, N, K, epilogue): every K of the main path (256, 320, 512, 640, 1280,
+# 2560, 5120) with the epilogue it takes there, then ragged shapes: M not a
+# multiple of the 128-row tile, N not a multiple of the tile width (160 or
+# 128), K not a multiple of the 64-deep stage and below it
+GEMM_CASES = [
+    (2048, 320, 320, dict(res1=True, res2_div=1024, steps=True)),  # 32^2 out-proj, attn2 a row an image
+    (2048, 960, 320, dict(bias=False)),  # 32^2 qkv
+    (2048, 2560, 320, dict(act="geglu", steps=True)),
+    (2048, 320, 1280, dict(res1=True, steps=True)),  # FF out
+    (1024, 640, 640, dict(res1=True, res2_div=1, steps=True)),  # 16^2 out-proj, attn2 a map
+    (1024, 5120, 640, dict(act="geglu", steps=True)),
+    (1024, 640, 2560, dict(res1=True, steps=True)),
+    (512, 1280, 5120, dict(res1=True)),  # the big-C form's FF: one rounding
+    (4096, 768, 256, dict(out="f32")),  # the DiT's qkv
+    (4096, 256, 256, dict(gate=True, alias=True)),  # gated in-place residual on the fp32 stream
+    (4096, 512, 256, dict(act="gelu")),
+    (4096, 256, 512, dict(gate=True, alias=True)),
+    (1000, 200, 72, dict(act="gelu", res1=True)),
+    (300, 96, 40, dict(res1=True, res2_div=100, steps=True)),
+    (777, 192, 136, dict(act="geglu", res1=True, steps=True)),
+    (130, 320, 320, dict(act="geglu", gate=True)),  # GEGLU without steps
+    (257, 160, 264, dict(out="f32", res1=True, res2_div=1)),  # fp32 out, bf16 residuals
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,epi", GEMM_CASES, ids=[f"{m}x{n}x{k}" for m, n, k, _ in GEMM_CASES])
+def test_gpu_gemm_sm90_matches_plain(cuda, M, N, K, epi):
+    """The wgmma site GEMM against gemm_plain (the fp32 product and the
+    TPU kernels' epilogue with their rounding points) on bf16 operands, each
+    epilogue on its route; `out` aliasing `res1` where the DiT updates its
+    stream in place. Two runs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bf = torch.bfloat16
+    act = {"geglu": K3.ACT_GEGLU, "gelu": K3.ACT_GELU}.get(epi.get("act"), K3.ACT_NONE)
+    assert K3.gemm_route(bf, N, K, act) == "sm90"
+    n_out = N // 2 if act == K3.ACT_GEGLU else N
+    out_dt = torch.float32 if epi.get("out") == "f32" or epi.get("alias") else bf
+    a, w = _rand(g, cuda, bf, M, K), _rand(g, cuda, bf, N, K, std=K**-0.5)
+    kw = dict(act=act, steps=epi.get("steps", False), out_dtype=out_dt,
+              bias=_rand(g, cuda, torch.float32, N, std=0.1) if epi.get("bias", True) else None,
+              gate=_rand(g, cuda, torch.float32, n_out, std=0.5) if epi.get("gate") else None)
+    res_dt = torch.float32 if epi.get("alias") else bf
+    res1 = _rand(g, cuda, res_dt, M, n_out) if epi.get("res1") or epi.get("alias") else None
+    if "res2_div" in epi:
+        kw.update(res2=_rand(g, cuda, bf, M // epi["res2_div"], n_out), res2_div=epi["res2_div"])
+
+    def run(fn):
+        r = None if res1 is None else res1.clone()
+        return fn(a, w, res1=r, out=r if epi.get("alias") else None, **kw)
+
+    got, want = run(K3.gemm), run(K3.gemm_plain)
+    assert got.shape == (M, n_out) and got.dtype == out_dt
+    if out_dt == bf:
+        _close_ulp(got, want)
+    else:
+        _gpu_close(got, want, torch.float32)
+    assert torch.equal(got, run(K3.gemm))
+
+
+@pytest.mark.gpu
+def test_gpu_gemm_routes_and_prepared_site(cuda):
+    """Each route counts under its own name, the prepared weights' tensor
+    maps are made once, and K3 on prepared weights gives the bits it gives on
+    the raw ones."""
+    from mvdfusion_tpu_torch.ops import _lib
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    bf = torch.bfloat16
+    a, w = _rand(g, cuda, bf, 256, 320), _rand(g, cuda, bf, 320, 320, std=320**-0.5)
+    _lib.reset_launches()
+    sm90, wmma = K3.gemm(a, w), K3.gemm(a, w, route="wmma")
+    K3.gemm(a.float(), w.float())
+    assert dict(_lib.LAUNCHES) == {"gemm_sm90": 1, "gemm_wmma": 1, "gemm_f32": 1}
+    _close_ulp(wmma, sm90)
+    B, N, C, heads = 2, 256, 320, 8
+    raw = _site_weights(g, cuda, bf, C)
+    x, a2 = _rand(g, cuda, bf, B, N, C), _rand(g, cuda, bf, B, C)
+    prepared = K3.prepare_site_weights(raw, bf)
+    first = K3.launch_transformer_block(x, a2, prepared, heads)
+    maps = {f: getattr(prepared, f)._mvdf_tma[1] for f in ("pi_w", "qkv_w", "out_w", "g_w", "f_w", "po_w")}
+    assert torch.equal(first, K3.launch_transformer_block(x, a2, prepared, heads))
+    assert all(getattr(prepared, f)._mvdf_tma[1] is m for f, m in maps.items())
+    assert torch.equal(first, K3.launch_transformer_block(x, a2, raw, heads))
