@@ -4,9 +4,12 @@
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
     python3 chip_smoke.py --profile-only STEPS
 
---profile-only runs the device and build phases, answers one 1-step request
-to warm up, traces STEPS flagship steps on the default route and stops (no
-checks, no JSON): the same script profiles two trees of the port alike.
+--profile-only runs the device and build phases, reads K4 and K4b by stage
+(device time per kernel, traced) and against their plain versions in bf16
+ulps, answers one 1-step request to warm up, traces STEPS flagship steps
+and STEPS steps of the evaluation scene (CFG batch 30) on the default route
+and stops (no checks, no JSON): it reads kernel names only, so the same
+script profiles two trees of the port alike.
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -22,7 +25,10 @@ Phases, each printed with elapsed seconds as it starts and ends:
               call computing the same thing. K2 has three rows: CLIP, and
               its tile inside K3 at the 32^2 and 16^2 sites (the rows'
               launches: attention_site_n1024 and _n256, counted by K3's
-              launcher); K5 logs its occupancy. The site GEMM has one row at
+              launcher); K5 logs its occupancy. K4's gather and its qkv tile
+              with the view attention have rows of their own (the tile
+              timed beside the standalone route: fp32 qkv GEMM + attention
+              kernel). The site GEMM has one row at
               each distinct (M, N, K) of the three driven paths in bf16: the
               wgmma kernel (gemm_sm90.cu) against its plain version, timed
               beside block.cu's wmma tile and torch.matmul (cuBLAS)
@@ -55,6 +61,10 @@ Phases, each printed with elapsed seconds as it starts and ends:
               checks shapes, finiteness, the [0, 1] range and the launch
               counts, and holds each switched result against the default
               route's
+  8. stages   K4 and K4b traced by kernel name (crossview_stages): device
+              ms by stage and kernels a call (21 each, no copy from the
+              host); last, since a profiler session slows the process's
+              later launches on the host
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
@@ -100,11 +110,14 @@ EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
 # 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
 # every gate)
 SITES_PER_LEVEL = 8
-# site GEMMs per step: 6 at each of the 16 split sites (K3) + the DiT's 4 per
-# layer x 3 + its output GEMM (K4); with the forms on, K5's 8 sites have none
-# and K6's 8 have 5 each
-GEMMS_PER_STEP = 6 * 2 * SITES_PER_LEVEL + 13
-GEMMS_PER_STEP_FORMS = 6 * SITES_PER_LEVEL + 5 * SITES_PER_LEVEL + 13
+# K4's DiT layers (ViewFusionConfig.viewattn_layers)
+DIT_LAYERS = 3
+# site GEMMs per step: 6 at each of the 16 split sites (K3) + the DiT's 3 per
+# layer (proj, fc1, fc2; its qkv product runs in the qkv + attention tile) +
+# its output GEMM (K4); with the forms on, K5's 8 sites have none and K6's 8
+# have 5 each
+GEMMS_PER_STEP = 6 * 2 * SITES_PER_LEVEL + 3 * DIT_LAYERS + 1
+GEMMS_PER_STEP_FORMS = 6 * SITES_PER_LEVEL + 5 * SITES_PER_LEVEL + 3 * DIT_LAYERS + 1
 ITERS = 20  # timed launches per kernel after warm-up
 VAE_ITERS = 5  # timed encode and decode calls per VAE route after one warm-up
 
@@ -425,87 +438,123 @@ def kernel_checks():
         replaces="mvdfusion_tpu/ops/block.py:370", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="x (16, 64, 1280) bf16, 8 heads, attn2 row")
 
-    # K4 cross-view aggregation: V=8 views x 32^2 points, hid 256, 3 layers
-    log(" K4 crossview")
-
-    def cv_inputs(V, Hh, hid, L, heads, out_dim, dt):
-        N, nh, mlp = V * Hh * Hh, 7, 2 * hid
-        lin = lambda o, i: rnd(o, i, std=i**-0.5, dt=dt)
-        w = K4.AggregatorWeights(
-            qkv_w=[lin(3 * hid, hid) for _ in range(L)], qkv_b=[rnd(3 * hid, std=0.1) for _ in range(L)],
-            proj_w=[lin(hid, hid) for _ in range(L)], proj_b=[rnd(hid, std=0.1) for _ in range(L)],
-            fc1_w=[lin(mlp, hid) for _ in range(L)], fc1_b=[rnd(mlp, std=0.1) for _ in range(L)],
-            fc2_w=[lin(hid, mlp) for _ in range(L)], fc2_b=[rnd(hid, std=0.1) for _ in range(L)],
-            mods=rnd(L, 6, hid, std=0.5), wl_w=lin(1, hid), wl_b=rnd(1, std=0.1), fin_w=lin(out_dim, hid),
-            fin_b=rnd(out_dim, std=0.1),
-        )
-        G = 7 * (1 + 2 * nh)
-        kg = K4.GeoWeights(kall=rnd(G, hid, std=G**-0.5, dt=dt), kmask=rnd(hid, std=0.1))
-        args = (rnd(V, N, 2) * 0.6, rnd(N, 3), rnd(V, 3) * 2, torch.ones(V, device=dev), rnd(N, hid, dt=dt),
-                rnd(V, Hh, Hh, hid, dt=dt), kg, w, heads, tuple(0.1 * 2.0**i for i in range(nh)))
-        return args, N, mlp, G
-
-    for dt, (V, Hh, hid, L, heads, out_dim), rtol in (
-        (torch.float32, (3, 8, 64, 2, 4, 48), 1e-4),
-        (bf, (8, 32, 256, 3, 8, 768), 3e-2),
-    ):
-        args, N, mlp, G = cv_inputs(V, Hh, hid, L, heads, out_dim, dt)
-        err = compare(f"crossview V={V} N={N} hid={hid}", K4.launch_crossview(*args), K4.crossview_plain(*args),
-                      rtol, "bf16 operands, fp32 residual stream on both sides" if dt == bf else "fp32 sum order", dt)
-    kw = K4.prepare_crossview_weights(args[6], args[7], dt)  # as GridAttn holds them
-    ms = time_ms(lambda: K4.launch_crossview(*args[:6], *kw, *args[8:]), ITERS)
-    plain_ms = time_ms(lambda: K4.crossview_plain(*args), max(2, ITERS // 4))
-    T = N * V
-    flops = (2 * T * (G + 4) * hid + L * (2 * T * hid * (4 * hid + 2 * mlp) + 4 * T * V * hid)
-             + 2 * N * hid * out_dim)
-    bms, by = bound(flops, nbytes(*args[:6]) + nbytes(*args[6]) + nbytes(*args[7]) + N * out_dim * 2)
-    rows["crossview"] = dict(
-        name="crossview", route="cuda",
-        source="mvdfusion_tpu_torch/csrc/crossview.cu (+ block.cu)",
-        replaces="mvdfusion_tpu/ops/crossview.py:562", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, shape="V=8, N=8192, hid 256, 3 layers, 8 heads, out 768, bf16")
-    # K4b cross-view aggregation, two-phase form: the 15-view evaluation
-    # (V=15 x 32^2 points); phase-1 tokens held to 1 bf16 ulp
-    log(" K4b crossview_two_phase")
-    for dt, (V, Hh, hid, L, heads, out_dim), rtol in (
-        (torch.float32, (3, 8, 64, 2, 4, 48), 1e-4),
-        (bf, (15, 32, 256, 3, 8, 768), 3e-2),
-    ):
-        args, N, mlp, G = cv_inputs(V, Hh, hid, L, heads, out_dim, dt)
-        geo_args = args[:4] + (args[5], args[6], args[9])  # xy, pts, centers, mask, maps_p, kg, freqs
-        tok = K4.launch_gather_tokens(*geo_args)
-        tok_plain = K4.gather_tokens_plain(*geo_args).to(dt).transpose(0, 1)
-        if dt == bf:
-            compare_tokens(f"crossview_two_phase phase-1 tokens V={V} N={N}", tok, tok_plain,
-                           K4.gather_tokens_bound(*geo_args).transpose(0, 1))
-        else:
-            compare(f"crossview_two_phase phase-1 tokens V={V} N={N}", tok, tok_plain, 1e-4, "fp32 sum order", dt)
-        err = compare(f"crossview_two_phase V={V} N={N} hid={hid}", K4.launch_crossview_two_phase(*args),
-                      K4.crossview_two_phase_plain(*args), rtol,
-                      "bf16 operands, tokens rounded at the same point, fp32 residual stream on both sides"
-                      if dt == bf else "fp32 sum order", dt)
-    kw = K4.prepare_crossview_weights(args[6], args[7], dt)
-    ms = time_ms(lambda: K4.launch_crossview_two_phase(*args[:6], *kw, *args[8:]), ITERS)
-    phase1_ms = time_ms(lambda: K4.launch_gather_tokens(*geo_args), ITERS)
-    plain_ms = time_ms(lambda: K4.crossview_two_phase_plain(*args), max(2, ITERS // 4))
-    T = N * V
-    flops = (2 * T * (G + 4) * hid + L * (2 * T * hid * (4 * hid + 2 * mlp) + 4 * T * V * hid)
-             + 2 * N * hid * out_dim)
-    bms, by = bound(flops, nbytes(*args[:6]) + nbytes(*args[6]) + nbytes(*args[7]) + N * out_dim * 2)
-    log(f"  crossview_two_phase: phase 1 (gather + geometry, bf16 tokens) {phase1_ms:.4f} ms of {ms:.4f} ms; "
-        f"{flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s")
-    rows["crossview_two_phase"] = dict(
-        name="crossview_two_phase", route="cuda",
-        source="mvdfusion_tpu_torch/csrc/crossview.cu (+ block.cu)",
-        replaces="mvdfusion_tpu/ops/crossview.py:404", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape="V=15, N=15360, hid 256, 3 layers, 8 heads, out 768, bf16")
+    rows.update(crossview_checks(rnd, dev))
     rows.update(vae_kernel_checks(rnd))
     rows.update(gemm_checks(rnd))
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms at {r['shape']}")
+    return rows
+
+
+K4_CALL_LAUNCHES = 21  # gather + 3 layers x (2 LayerNorms, qkv + attention, proj, fc1, fc2) + pool + final GEMM
+
+
+def crossview_checks(rnd, dev):
+    """K4 (V=8) and K4b (V=15) against their plain versions at chip_smoke's
+    shapes in bf16 (1 bf16 ulp of max|plain|, mean 3e-4 x max|plain|) and at
+    small shapes in fp32, timed (each row keeps its call for the stages
+    phase: crossview_stage_checks); then the gather and the qkv tile with
+    the view attention alone, against their plain versions, in device time
+    (the tile beside the standalone route: the fp32 qkv GEMM and
+    crossview.cu's attention kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvdfusion_tpu_torch.ops import block as K3
+    from mvdfusion_tpu_torch.ops import crossview as K4
+
+    bf = torch.bfloat16
+    rows = {}
+    why = "bf16 operands rounded at the same points, fp32 residual stream on both sides, sums in another order"
+    forms = {"crossview": (K4.launch_crossview, K4.crossview_plain, "mvdfusion_tpu/ops/crossview.py:562"),
+             "crossview_two_phase": (K4.launch_crossview_two_phase, K4.crossview_two_phase_plain,
+                                     "mvdfusion_tpu/ops/crossview.py:404")}
+    inputs = {}
+    for name, (launch, plain, src) in forms.items():
+        log(f" K4 {name}")
+        for dt, (V, Hh, hid, L, heads, out_dim) in ((torch.float32, (3, 8, 64, 2, 4, 48)),
+                                                   (bf, (8 if name == "crossview" else 15, 32, 256, 3, 8, 768))):
+            args, N, mlp, G = cv_inputs(K4, rnd, dev, V, Hh, hid, L, heads, out_dim, dt)
+            if dt == bf:
+                err = compare_ulp(f"{name} V={V} N={N} hid={hid}", launch(*args), plain(*args), why, mean_tol=3e-4)
+            else:
+                compare(f"{name} V={V} N={N} hid={hid}", launch(*args), plain(*args), 1e-4, "fp32 sum order", dt)
+        inputs[name] = args
+        kw = K4.prepare_crossview_weights(args[6], args[7], dt, heads, args[9])  # as GridAttn holds them
+        call = lambda launch=launch, args=args, kw=kw: launch(*args[:6], *kw, *args[8:])
+        ms = time_ms(call, ITERS)
+        plain_ms = time_ms(lambda: plain(*args), max(2, ITERS // 4))
+        T = N * V
+        flops = (2 * T * (G + 4) * hid + L * (2 * T * hid * (4 * hid + 2 * mlp) + 4 * T * V * hid)
+                 + 2 * N * hid * out_dim)
+        bms, by = bound(flops, nbytes(*args[:6]) + nbytes(*args[6][:2]) + nbytes(*args[7]) + N * out_dim * 2)
+        log(f"  {name}: {ms:.4f} ms, {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/crossview.cu (+ gemm_sm90.cu)",
+                          replaces=src, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None, stages_call=call,
+                          shape=f"V={V}, N={N}, hid {hid}, {L} layers, {heads} heads, out {out_dim}, bf16")
+
+    # the gather: phase-1 tokens within 1 bf16 ulp + gather_tokens_bound, the
+    # two-phase stream GELU(float(token) + b_acc) of the kernel's own tokens
+    for name, form, src in (("crossview_gather V=8", "single", "mvdfusion_tpu/ops/crossview.py:127"),
+                            ("crossview_gather V=15", "two_phase", "mvdfusion_tpu/ops/crossview.py:404")):
+        args = inputs["crossview" if form == "single" else "crossview_two_phase"]
+        xy, pts, centers, mask, b_acc, maps_p, kg, _, heads, freqs = args
+        V, N, hid = xy.shape[0], xy.shape[1], maps_p.shape[-1]
+        geo = (xy, pts, centers, mask, maps_p, kg, freqs)
+        tok = K4.launch_gather_tokens(*geo)
+        ulps = compare_tokens(f"crossview phase-1 tokens V={V} N={N}", tok, K4.gather_tokens_plain(*geo).to(bf)
+                              .transpose(0, 1), K4.gather_tokens_bound(*geo).transpose(0, 1))
+        stream = K4.launch_gather(*geo[:4], b_acc, maps_p, kg, freqs, form)
+        if form == "two_phase":
+            compare(f"crossview gather stream V={V}, the kernel's tokens rounded, + b_acc, GELU", stream,
+                    F.gelu(tok.float() + b_acc.float()[:, None, :]).reshape(-1, hid), 1e-5,
+                    "the same fp32 GELU of the same rounded token", torch.float32)
+        kgp = K4.prepare_crossview_weights(kg, args[7], bf, heads, freqs)[0]
+        run = lambda: K4.launch_gather(*geo[:4], b_acc, maps_p, kgp, freqs, form)
+        ms = device_ms(run, ITERS)
+        plain_ms = device_ms(lambda: K4.gather_stream_plain(*geo[:4], b_acc, maps_p, kg, freqs, form == "two_phase"),
+                             max(2, ITERS // 4))
+        G, T = kg.kall.shape[0], N * V
+        bms, by = bound(2 * T * (G + 4) * hid, nbytes(xy, pts, centers, mask, b_acc, maps_p, kg.kall, kg.kmask)
+                        + T * hid * 4)
+        log(f"  {name} ({form}): {ms:.4f} ms, bound {bms:.4f} ms ({by}); phase-1 tokens at most {ulps:.2f} ulp")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/crossview.cu (cv_gather_mma_kernel)",
+                          replaces=src, max_abs_err=(stream - K4.gather_stream_plain(
+                              *geo[:4], b_acc, maps_p, kg, freqs, form == "two_phase")).abs().max().item(),
+                          ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                          shape=f"V={V}, N={N}, hid {hid}, G {G}, the {form} form's fp32 stream",
+                          phase="slice" if form == "single" else "eval", launch_key="cv_gather_mma")
+
+    # the qkv tile with the view attention, beside the standalone route
+    for V, phase in ((8, "slice"), (15, "eval")):
+        args = inputs["crossview" if V == 8 else "crossview_two_phase"]
+        N, hid, heads = args[0].shape[1], args[5].shape[-1], args[8]
+        kw = K4.prepare_crossview_weights(args[6], args[7], bf, heads, args[9])[1]
+        h = rnd(N * V, hid, dt=bf)
+        qw, qb = kw.qkv_w[0], kw.qkv_b[0]
+        want = K4.view_attention_plain(h, qw, qb, V, heads)
+        name = f"crossview_qkv_attention V={V}"
+        err = compare_ulp(f"{name} (fused)", K4.view_attention(h, qw, qb, V, heads), want,
+                          "both round the fp32 attention output once", mean_tol=1e-4)
+        compare_ulp(f"{name} (standalone)", K4.view_attention(h, qw, qb, V, heads, route="standalone"), want,
+                    "both round the fp32 attention output once", mean_tol=1e-4)
+        check(torch.equal(K4.view_attention(h, qw, qb, V, heads), K4.view_attention(h, qw, qb, V, heads)),
+              f"{name}: two runs differ")
+        ms = device_ms(lambda: K4.view_attention(h, qw, qb, V, heads), ITERS)
+        alone_ms = device_ms(lambda: K4.view_attention(h, qw, qb, V, heads, route="standalone"), ITERS)
+        plain_ms = device_ms(lambda: K4.view_attention_plain(h, qw, qb, V, heads), max(2, ITERS // 4))
+        M = N * V
+        bms, by = bound(2 * M * hid * 3 * hid + 4 * M * V * hid, nbytes(h, qw, qb) + M * hid * 2)
+        log(f"  {name}: the qkv tile {ms:.4f} ms; the standalone route (fp32 qkv GEMM + attention kernel) "
+            f"{alone_ms:.4f} ms; bound {bms:.4f} ms ({by}); route {K4.attention_route(bf, V, hid, heads)}")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/gemm_sm90.cu "
+                          "(qkv_attention_sm90_kernel; viewattn.cuh)", replaces="mvdfusion_tpu/ops/crossview.py:278",
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                          standalone_ms=alone_ms, shape=f"h ({M}, {hid}) bf16, qkv (768, 256) packed per head, "
+                          f"{heads} heads, V={V}", phase=phase, launch_key="cv_qkv_attention")
     return rows
 
 
@@ -628,8 +677,9 @@ def vae_kernel_checks(rnd):
 # twice the inner width. Epilogues as the path runs them: "res" the out-projection's
 # h0 + attn2 (a row per batch element at 32^2, a map at 16^2 and 8^2),
 # "ff" FF out + h2, "ff1" the big-C form's one rounding, "gate" the DiT's
-# gated in-place residual on its fp32 stream, "f32" its qkv in fp32, "qkv"
-# the site's qkv (no bias).
+# gated in-place residual on its fp32 stream, "qkv" the site's qkv (no
+# bias). The DiT's qkv product runs in the qkv + attention tile
+# (crossview_checks).
 _SITE, _FF, _BIGC, _DIT = ("mvdfusion_tpu/ops/block.py:315", "mvdfusion_tpu/ops/block.py:327",
                            "mvdfusion_tpu/ops/block.py:338", "mvdfusion_tpu/ops/crossview.py:188")
 GEMM_ROWS = [
@@ -640,7 +690,7 @@ GEMM_ROWS = [
           (B * 1024, 2560, 320, "geglu", _FF), (B * 1024, 320, 1280, "ff", _FF),
           (B * 256, 640, 640, "res_map", _SITE), (B * 256, 1920, 640, "qkv", _SITE),
           (B * 256, 5120, 640, "geglu", _FF), (B * 256, 640, 2560, "ff", _FF),
-          (V * V * 1024, 768, 256, "f32", _DIT), (V * V * 1024, 256, 256, "gate", _DIT),
+          (V * V * 1024, 256, 256, "gate", _DIT),
           (V * V * 1024, 512, 256, "gelu", _DIT), (V * V * 1024, 256, 512, "gate", _DIT),
           (V * 1024, 768, 256, "none", _DIT))),
     (1024, 1280, 1280, "res_map", "forms", _BIGC), (1024, 10240, 1280, "geglu", "forms", _BIGC),
@@ -829,6 +879,10 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "attention_site_n256": REQUESTS * steps * SITES_PER_LEVEL,  # and 16^2 sites
         "crossview": REQUESTS * steps,
         "crossview_two_phase": 0,
+        "cv_gather_mma": REQUESTS * steps,  # K4's gather, the tensor-core form
+        "cv_gather_simt": 0,
+        "cv_qkv_attention": REQUESTS * steps * DIT_LAYERS,  # the DiT's qkv + attention tile
+        "cv_attention": 0,
         "transformer_block_single": 0,
         "transformer_block_big": 0,
         "gemm_sm90": REQUESTS * steps * GEMMS_PER_STEP,
@@ -848,7 +902,7 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
 
 
 # ---------------------------------------------------------------- phase 5
-def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
+def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None, profile: int = 0):
     """The evaluation path on one in-memory scene: the 16-view GSO rig,
     random 256^2 images from a numpy seed, 1 input and 15 target views
     (cli/demo.py's split), eval_scenes, then the quality and consistency
@@ -913,6 +967,10 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
         "attention_site_n256": steps * SITES_PER_LEVEL,
         "crossview_two_phase": steps,
         "crossview": 0,
+        "cv_gather_mma": steps,
+        "cv_gather_simt": 0,
+        "cv_qkv_attention": steps * DIT_LAYERS,
+        "cv_attention": 0,
         "gemm_sm90": steps * GEMMS_PER_STEP,
         "gemm_wmma": 0,
     }
@@ -920,6 +978,9 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None):
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
     counts.update(_lib.GEMM_SHAPES)
+    if profile:
+        profile_steps(model, eval_prepared(model, dev), profile, what="eval, CFG batch 30",
+                      feed_prev_depth=cfg.feed_prev_depth)
     log(f"  eval: {t['sample'] / steps:.4f} s/step, {sum(t.values()):.3f} s/scene ({B} target views, {steps} steps, "
         f"CFG batch {2 * B}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
     return counts
@@ -996,6 +1057,9 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "attention": 24,
         "crossview": steps,
         "crossview_two_phase": 0,
+        "cv_gather_mma": steps,
+        "cv_qkv_attention": steps * DIT_LAYERS,
+        "cv_attention": 0,
         "gemm_sm90": steps * GEMMS_PER_STEP_FORMS,
         "gemm_wmma": 0,
     }
@@ -1006,7 +1070,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     if profile:
         set_forms(True)
         try:
-            profile_steps(model, prepared, profile)
+            profile_steps(model, prepared, profile, what="forms")
         finally:
             set_forms(False)
     log(f"  forms: {ts / steps:.4f} s/step, {B / (tp + ts + td):.3f} views/s (1 request of {B} views, {steps} steps), "
@@ -1133,9 +1197,21 @@ def vae_route_times(model, images, z, card: str) -> None:
         set_vae_forms(False, False)
 
 
-def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
+def _host_syncs(events) -> tuple:
+    """(host-to-device copies, stream or device synchronisations) among a
+    trace's events: the copies' device records and the runtime calls' host
+    records."""
+    h2d = sum(e.count for e in events if str(e.device_type).endswith("CUDA") and "HtoD" in e.key)
+    syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    return h2d, syncs
+
+
+def profile_steps(model, prepared, steps: int, top: int = 18, what: str = "flagship",
+                  feed_prev_depth: bool = False) -> None:
     """torch.profiler over `steps` sampling steps: device time by kernel name
-    per step, and the device's busy share of the wall time."""
+    per step, the device's busy share of the wall time, and the host-to-device
+    copies and synchronisations a step makes (each one stalls the host, and
+    none can be captured in a CUDA graph)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1146,25 +1222,164 @@ def profile_steps(model, prepared, steps: int, top: int = 18) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with torch.no_grad():
-            ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g)
+            ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g, feed_prev_depth=feed_prev_depth)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    averages = prof.key_averages()
     # kernel events only (device_type CUDA): an aten op's self device time
     # repeats the time of the kernels it launched
-    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    events = [e for e in averages if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     if not events:
-        log("  profile: the trace holds no device events (device time not measured)")
+        log(f"  profile ({what}): the trace holds no device events (device time not measured)")
         return
     busy = sum(dev_us(e) for e in events) / 1e6
     launches = sum(e.count for e in events)
     copies = [e for e in events if "copy" in e.key.lower()]
-    log(f"  profile of {steps} steps: wall {wall / steps * 1e3:.2f} ms/step (profiled), device busy "
+    h2d, syncs = _host_syncs(averages)
+    log(f"  profile ({what}) of {steps} steps: wall {wall / steps * 1e3:.2f} ms/step (profiled), device busy "
         f"{busy / steps * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% of wall; {launches / steps:.1f} kernel "
         f"launches/step; copy kernels {sum(dev_us(e) for e in copies) / steps / 1e3:.3f} ms/step in "
-        f"{sum(e.count for e in copies) / steps:.1f} launches/step")
+        f"{sum(e.count for e in copies) / steps:.1f} launches/step; host-to-device copies {h2d / steps:.1f}/step, "
+        f"synchronisations {syncs / steps:.1f}/step (the trace's whole window, sampler set-up included)")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / steps / 1e3:9.3f} ms/step {e.count / steps:7.1f} calls/step  {e.key[:110]}")
+
+
+# K4's kernels by stage, from their names (csrc/crossview.cu, block.cu,
+# gemm_sm90.cu); the GEMMs are told apart by the stage before them
+_STAGE_OF = (("cv_gather", "gather"), ("cv_token_gelu", "GELU pass"), ("qkv_attention", "qkv + attention"),
+             ("cv_attention", "attention"), ("cv_pool", "pool"), ("layernorm", "LN"), ("gemm", "GEMM"),
+             ("HtoD", "host-to-device copy"))
+
+
+def crossview_stages(fn, iters: int = 10) -> dict:
+    """Device ms per call of one K4 form (`fn`) by stage, from a trace of
+    `iters` calls: the gather, K4b's GELU pass where it exists, LN1 and LN2,
+    the qkv GEMM and the attention (or the two in one kernel), proj, fc1,
+    fc2, the pool and the final GEMM; "other" sums PyTorch's own kernels.
+    Also the kernels, host-to-device copies and synchronisations a call
+    makes. Reads only kernel names, so it times any tree of the port alike."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    ms, ln, after = collections.Counter(), 0, None
+    for e in kernels:
+        stage = next((s for key, s in _STAGE_OF if key in e.name), "other")
+        if stage == "LN":
+            ln += 1
+            stage = after = "LN1" if ln % 2 else "LN2"
+        elif stage == "GEMM":
+            stage = {"LN1": "qkv", "attention": "proj", "qkv + attention": "proj", "LN2": "fc1", "fc1": "fc2",
+                     "pool": "final"}.get(after, "GEMM")
+            after = stage
+        elif stage in ("attention", "qkv + attention", "pool"):
+            after = stage
+        ms[stage] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+    h2d, syncs = _host_syncs(prof.key_averages())
+    return dict(stages=dict(ms), total=sum(ms.values()), kernels=len(kernels) / iters, h2d=h2d / iters,
+                syncs=syncs / iters)
+
+
+def crossview_stage_checks(rows) -> None:
+    """K4's and K4b's rows by stage (crossview_stages on the call each row
+    keeps), their kernels a call held to K4_CALL_LAUNCHES with no copy from
+    the host. Run after the timed phases: a profiler session leaves the
+    process's later launches slower on the host."""
+    for name in ("crossview", "crossview_two_phase"):
+        r = rows[name]
+        st = crossview_stages(r.pop("stages_call"))
+        log_stages(f"{name} ({r['shape']})", st)
+        check(st["kernels"] <= K4_CALL_LAUNCHES, f"{name}: {st['kernels']:g} kernels a call, the path implies "
+                                                 f"{K4_CALL_LAUNCHES}")
+        check(st["h2d"] == 0, f"{name}: {st['h2d']:g} host-to-device copies a call")
+        r.update(stages_ms=st["stages"], kernels_a_call=st["kernels"])
+
+
+def log_stages(name: str, st: dict) -> None:
+    log(f"  {name} by stage (device ms a call, traced): " + ", ".join(f"{k} {v:.4f}" for k, v in st["stages"].items())
+        + f"; sum {st['total']:.4f}; {st['kernels']:g} kernels, {st['h2d']:g} host-to-device copies and "
+        f"{st['syncs']:g} synchronisations a call")
+
+
+def crossview_readings() -> None:
+    """K4 (V=8) and K4b (V=15) at chip_smoke's shapes in bf16, on prepared
+    weights: the stage breakdown and each form's gap to its plain version in
+    bf16 ulps of max|plain| and its mean (logged, not held: the same reading
+    serves a parent tree)."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import crossview as K4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s, std=1.0, dt=torch.float32: (torch.randn(s, generator=g, device=dev) * std).to(dt)
+    for name, V, launch, plain in (("crossview", 8, K4.launch_crossview, K4.crossview_plain),
+                                   ("crossview_two_phase", 15, K4.launch_crossview_two_phase,
+                                    K4.crossview_two_phase_plain)):
+        args, *_ = cv_inputs(K4, rnd, dev, V, 32, 256, DIT_LAYERS, 8, 768, torch.bfloat16)
+        try:
+            kw = K4.prepare_crossview_weights(args[6], args[7], torch.bfloat16, 8, args[9])
+        except TypeError:  # an older tree of the port: no per-head packing, no frequency tensor
+            kw = K4.prepare_crossview_weights(args[6], args[7], torch.bfloat16)
+        got, want = launch(*args[:6], *kw, *args[8:]).float(), plain(*args).float()
+        diff = (got - want).abs()
+        top = want.abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        log(f"  {name} V={V}: max|kernel - plain| = {diff.max().item() / ulp:.3f} bf16 ulp of max|plain| "
+            f"{top:.3e}, mean {diff.mean().item() / top:.3e} x max|plain|")
+        log_stages(f"{name} V={V}", crossview_stages(lambda: launch(*args[:6], *kw, *args[8:])))
+
+
+def cv_inputs(K4, rnd, dev, V, Hh, hid, L, heads, out_dim, dt):
+    """K4's operands at V views of Hh^2 points, random from `rnd`: (args,
+    N, mlp, G) with args as launch_crossview takes them."""
+    import torch
+
+    N, nh, mlp = V * Hh * Hh, 7, 2 * hid
+    lin = lambda o, i: rnd(o, i, std=i**-0.5, dt=dt)
+    w = K4.AggregatorWeights(
+        qkv_w=[lin(3 * hid, hid) for _ in range(L)], qkv_b=[rnd(3 * hid, std=0.1) for _ in range(L)],
+        proj_w=[lin(hid, hid) for _ in range(L)], proj_b=[rnd(hid, std=0.1) for _ in range(L)],
+        fc1_w=[lin(mlp, hid) for _ in range(L)], fc1_b=[rnd(mlp, std=0.1) for _ in range(L)],
+        fc2_w=[lin(hid, mlp) for _ in range(L)], fc2_b=[rnd(hid, std=0.1) for _ in range(L)],
+        mods=rnd(L, 6, hid, std=0.5), wl_w=lin(1, hid), wl_b=rnd(1, std=0.1), fin_w=lin(out_dim, hid),
+        fin_b=rnd(out_dim, std=0.1),
+    )
+    G = 7 * (1 + 2 * nh)
+    kg = K4.GeoWeights(kall=rnd(G, hid, std=G**-0.5, dt=dt), kmask=rnd(hid, std=0.1))
+    args = (rnd(V, N, 2) * 0.6, rnd(N, 3), rnd(V, 3) * 2, torch.ones(V, device=dev), rnd(N, hid, dt=dt),
+            rnd(V, Hh, Hh, hid, dt=dt), kg, w, heads, tuple(0.1 * 2.0**i for i in range(nh)))
+    return args, N, mlp, G
+
+
+def eval_prepared(model, dev):
+    """The evaluation scene's sampler inputs (run_eval's rig and images),
+    for profiling its batch-30 step."""
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
+
+    ls, B = model.cfg.latent_size, EVAL_TARGETS
+    IMG = ls * 2 ** (len(model.cfg.vae_ch_mult) - 1)
+    R, T, f, c = fixed_rig(AZIMUTHS_16, ELEVATIONS_16)
+    images = np.random.default_rng(SEED).uniform(size=(16, IMG, IMG, 3)).astype(np.float32)
+    sel = np.linspace(0, 15, 1 + B).astype(np.int64)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    with torch.no_grad():
+        _, *prepared = model.prepare_batch(on(images), on(R), on(T), on(f), on(c), on(sel[:1]), on(sel[1:]))
+    return prepared
 
 
 def main() -> int:
@@ -1176,9 +1391,10 @@ def main() -> int:
                     help="DDIM steps of the request with the switched transformer-site forms on")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
-                         "route (slice) and with the switched forms on (forms)")
+                         "route (slice), on the evaluation scene (eval) and with the switched forms on (forms)")
     ap.add_argument("--profile-only", type=int, default=0, metavar="STEPS",
-                    help="only build the kernels and trace STEPS flagship steps on the default route")
+                    help="only build the kernels, read K4 and K4b by stage and against their plain versions, "
+                         "and trace STEPS flagship and STEPS evaluation steps on the default route")
     args = ap.parse_args()
 
     if not (HERE / "mvdfusion_tpu_torch" / "csrc").is_dir():
@@ -1214,10 +1430,13 @@ def main() -> int:
 
     if args.profile_only:
         with Phase("profile"):
+            crossview_readings()
             model = build_model()
-            _, prepared, _ = answer(model, flagship_scene(model, torch.device("cuda")), 1, SEED + 1,
-                                    torch.device("cuda"))
+            dev = torch.device("cuda")
+            _, prepared, _ = answer(model, flagship_scene(model, dev), 1, SEED + 1, dev)
             profile_steps(model, prepared, args.profile_only)
+            profile_steps(model, eval_prepared(model, dev), args.profile_only, what="eval, CFG batch 30",
+                          feed_prev_depth=model.cfg.feed_prev_depth)
         return 0
 
     with Phase("kernels"):
@@ -1228,7 +1447,7 @@ def main() -> int:
         counts = run_slice(args.steps, card, profile=args.profile, model=model)
 
     with Phase("eval"):
-        eval_counts = run_eval(args.eval_steps, card, model=model)
+        eval_counts = run_eval(args.eval_steps, card, model=model, profile=args.profile)
         found = {}
         for mod in ("yaml", "PIL", "imageio"):
             try:
@@ -1243,6 +1462,9 @@ def main() -> int:
 
     with Phase("vae"):
         vae_counts = run_vae(card, model=model)
+
+    with Phase("stages"):
+        crossview_stage_checks(rows)
 
     # launches of the phase that drives each kernel's path: the flagship
     # slice for K1-K4, the evaluation scene for the two-phase K4, the forms

@@ -32,13 +32,16 @@
 //   main path's combinations of the epilogue's operands each have their own
 //   branch-free loop (an unrolled register epilogue with the branches of all
 //   of them was too large to run from the instruction cache; PERF.md).
-// W's tensor map is made once per prepared weight (mvdf_tma_desc); A's is
-// made for each call. cuTensorMapEncodeTiled is fetched at run time
+// The same ring also feeds K4's qkv tile (qkv_attention_sm90_kernel below),
+// which keeps the DiT's qkv sums in shared memory and attends across views
+// there. W's tensor map is made once per prepared weight (mvdf_tma_desc);
+// A's is made for each call. cuTensorMapEncodeTiled is fetched at run time
 // (cudaGetDriverEntryPointByVersion), so nothing links -lcuda.
 #include <cuda.h>
 #include <string.h>
 
 #include "gemm.cuh"
+#include "viewattn.cuh"
 
 namespace mvdf {
 namespace sm90 {
@@ -125,6 +128,32 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A (64x16, K-major, smem) * B (96x16, K-major, smem); 48 fp32 sums a thread
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the accumulators as the compiler sees them are written here, after the
+// wgmma that writes them has been waited for: no read moves above the wait
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -360,6 +389,140 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// K4's qkv GEMM with the view attention in its tiles: att = ViewAttention(
+// A @ W^T + bias) for A (M = N*V, K <= 256) bf16 rows point-major and W
+// (3*hid, K) with each head's q, k and v rows side by side
+// (ops/crossview.py::pack_qkv_heads), dh = 32. The fp32 qkv never reaches
+// device memory: a tile holds `points` whole points (points * V <= 128 rows,
+// the M stride; A's 128-row box loads the rows past them too, and they are
+// never written) and all of K, resident in shared memory while the block
+// walks the heads; for each head the producer streams W's 96 rows through
+// a 4-stage ring (the next head's while this head's epilogue runs), the two
+// consumer warpgroups take the 64 x 96 products (wgmma m64n96k16), stage the
+// sums in fp32 with the bias added and q scaled by dh^-0.5, and their 256
+// threads attend (viewattn.cuh: two threads a query row, the key loop
+// unrolled over 4, 8 or 16 keys without a branch) and store the head's 32
+// columns of att in bf16, rounded once. The producer loads the next tile's
+// A as soon as the last head's products are done. Measured slower (PERF.md):
+// issuing the next head's products before this head's attention into a
+// second set of accumulators; four threads a pair of query rows.
+constexpr int QA_DH = 32, QA_BN = 3 * QA_DH, QA_SLICES = 4, QA_STAGES = 4;
+constexpr int QA_A_SLICE = BM * BK * 2, QA_B_STAGE = QA_BN * BK * 2;
+
+struct QaCfg {
+  static constexpr int LDS = QA_BN + 8;  // as Cfg::LDS: the fragments' float2 stores without conflicts
+  static constexpr int A = QA_SLICES * QA_A_SLICE;
+  static constexpr int RING = QA_STAGES * QA_B_STAGE;
+  static constexpr int STAGING = BM * LDS * 4;
+  static constexpr int SMEM = A + RING + STAGING + (2 * QA_STAGES + 2) * 8 + 1024;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    qkv_attention_sm90_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+                              const float* __restrict__ bias, bf16* __restrict__ out, int M, int K, int V, int points,
+                              int heads, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sA = smem;
+  unsigned char* sB = smem + QaCfg::A;
+  float* stage = reinterpret_cast<float*>(smem + QaCfg::A + QaCfg::RING);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + QaCfg::A + QaCfg::RING + QaCfg::STAGING);
+  uint64_t* empty = full + QA_STAGES;
+  uint64_t* a_full = empty + QA_STAGES;
+  uint64_t* a_empty = a_full + 1;
+
+  const int rows = points * V, tiles = (M + rows - 1) / rows, nk = (K + BK - 1) / BK, hid = heads * QA_DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QA_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CONSUMERS);
+    }
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, 4 * CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * CONSUMERS) {  // the producer
+    if (lane == 0) {
+      int it = 0, ti = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++ti) {
+        mbar_wait(a_empty, (ti & 1) ^ 1);
+        mbar_expect_tx(a_full, nk * QA_A_SLICE);
+        for (int kb = 0; kb < nk; ++kb) tma_load(sA + kb * QA_A_SLICE, &tmA, kb * BK, t * rows, a_full);
+        for (int h = 0; h < heads; ++h)
+          for (int kb = 0; kb < nk; ++kb, ++it) {
+            const int s = it % QA_STAGES;
+            mbar_wait(&empty[s], ((it / QA_STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], QA_B_STAGE);
+            tma_load(sB + s * QA_B_STAGE, &tmW, kb * BK, h * QA_BN, &full[s]);
+          }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, ctid = threadIdx.x;
+  const int sr = wg * 64 + (tid >> 5) * 16 + (lane >> 2), sc = 2 * (lane & 3);
+  float d[QA_BN / 2];
+  int it = 0, ti = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++ti) {
+    const int m0 = t * rows;
+    mbar_wait(a_full, ti & 1);
+    for (int h = 0; h < heads; ++h) {
+#pragma unroll
+      for (int i = 0; i < QA_BN / 2; ++i) d[i] = 0.0f;
+      int prev = -1;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % QA_STAGES;
+        mbar_wait(&full[s], (it / QA_STAGES) & 1);
+        const unsigned char* a = sA + kb * QA_A_SLICE + wg * (64 * BK * 2);
+        const unsigned char* b = sB + s * QA_B_STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_n96(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32), (kb | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      wgmma_fence_operand(d);
+      if (lane == 0) {
+        mbar_arrive(&empty[prev]);
+        if (h == heads - 1) mbar_arrive(a_empty);  // the tile's products are done with A
+      }
+      // the previous head's attention is done with the staging tile
+      named_barrier(1, 128 * CONSUMERS);
+      const float* bh = bias + h * QA_BN;
+#pragma unroll
+      for (int i = 0; i < QA_BN / 8; ++i) {
+        const int c = 8 * i + sc;
+        const float2 b = *reinterpret_cast<const float2*>(bh + c);
+        const float f = i < QA_DH / 8 ? scale : 1.0f;  // q's columns
+        *reinterpret_cast<float2*>(stage + sr * QaCfg::LDS + c) = make_float2((d[4 * i] + b.x) * f, (d[4 * i + 1] + b.y) * f);
+        *reinterpret_cast<float2*>(stage + (sr + 8) * QaCfg::LDS + c) =
+            make_float2((d[4 * i + 2] + b.x) * f, (d[4 * i + 3] + b.y) * f);
+      }
+      named_barrier(1, 128 * CONSUMERS);
+      const int r = ctid >> 1, half = ctid & 1;
+      const bool ok = r < rows && m0 + r < M;
+      const int rr = ok ? r : 0, p0 = (rr / V) * V;
+      const float* pt = stage + p0 * QaCfg::LDS;
+      float o[QA_DH / 2];
+      if (V <= 4)
+        view_attention_half<QA_DH, 4>(pt, QaCfg::LDS, rr - p0, half, V, 1.0f, o);
+      else if (V <= 8)
+        view_attention_half<QA_DH, 8>(pt, QaCfg::LDS, rr - p0, half, V, 1.0f, o);
+      else
+        view_attention_half<QA_DH, CV_MAX_VIEWS>(pt, QaCfg::LDS, rr - p0, half, V, 1.0f, o);
+      if (ok) store_row<QA_DH / 2>(out + (int64_t)(m0 + r) * hid + h * QA_DH + half * (QA_DH / 2), o);
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -456,4 +619,37 @@ MVDF_API int mvdf_gemm_sm90(const void* A, const void* w_desc, const void* bias,
   memcpy(&tmW, w_desc, sizeof(tmW));
   cudaStream_t s = (cudaStream_t)stream;
   return bn == sm90::BN ? sm90::launch(tmA, tmW, N, K, e, s) : (int)cudaErrorInvalidValue;
+}
+
+// att = ViewAttention(A (M, K) @ W^T + bias) in bf16 (qkv_attention_sm90_kernel):
+// w_desc is W's map from mvdf_tma_desc with box_rows == 96 (one head's packed
+// q, k and v rows; W (3 * 32 * heads, K)); bias (3 * 32 * heads) fp32, packed
+// alike; M = N * V rows point-major, `points` whole points a tile
+// (points * V <= 128); K <= 256, K % 8 == 0; dh = 32.
+MVDF_API int mvdf_qkv_attention_sm90(const void* A, const void* w_desc, const void* bias, void* out, int M, int K,
+                                     int V, int points, int heads, float scale, void* stream) {
+  using sm90::QaCfg;
+  if (M <= 0 || K % 8 || K > sm90::QA_SLICES * sm90::BK || V < 1 || V > CV_MAX_VIEWS || points < 1 ||
+      points * V > sm90::BM || M % V || heads < 1 || !bias || (uintptr_t)A % 16 || (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t rc =
+        cudaFuncSetAttribute(sm90::qkv_attention_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QaCfg::SMEM);
+    if (rc != cudaSuccess || sms <= 0) {
+      sms = 0;
+      return rc != cudaSuccess ? (int)rc : (int)cudaErrorInvalidDevice;
+    }
+  }
+  CUtensorMap tmA, tmW;
+  const int rc = sm90::encode(&tmA, A, M, K, sm90::BM);
+  if (rc) return rc;
+  memcpy(&tmW, w_desc, sizeof(tmW));
+  const int tiles = (M + points * V - 1) / (points * V);
+  sm90::qkv_attention_sm90_kernel<<<tiles < sms ? tiles : sms, sm90::THREADS, QaCfg::SMEM, (cudaStream_t)stream>>>(
+      tmA, tmW, (const float*)bias, (bf16*)out, M, K, V, points, heads, scale);
+  return (int)cudaGetLastError();
 }

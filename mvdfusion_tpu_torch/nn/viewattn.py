@@ -156,7 +156,8 @@ class GridAttn(nn.Module):
             for b in self.aggregation_transformer.layer_list
         ])
         if prepared:
-            geo, agg = prepared_crossview_weights(self, self._kernel_params(), self._static_kernel_weights, dt)
+            geo, agg = prepared_crossview_weights(self, self._kernel_params(), self._static_kernel_weights, dt,
+                                                  self.num_heads, harmonic_frequencies(N_HARMONIC, OMEGA0))
         else:
             geo, agg = self._static_kernel_weights()
         return geo, agg._replace(mods=mods)

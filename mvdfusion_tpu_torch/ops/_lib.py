@@ -49,10 +49,10 @@ _SIGNATURES = {
     "mvdf_gemm_sm90": "ppppipipiipiiiiiip",
     "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "iiiii" + "ff" + "ip",
     "mvdf_big_attention": "pppiiiifip",
-    "mvdf_cv_gather": "pppppppppipiiiiiip",
-    "mvdf_cv_gather_tokens": "ppppppppipiiiiiip",
-    "mvdf_cv_token_gelu": "pppiiiip",
+    "mvdf_qkv_attention_sm90": "ppppiiiiifp",
+    "mvdf_cv_gather": "pppppppppipiiiiiiiip",
     "mvdf_cv_attention": "ppiiiifip",
+    "mvdf_cv_layernorm": "ppppiifip",
     "mvdf_cv_pool": "ppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64, "f": ctypes.c_float}

@@ -16,16 +16,19 @@ the gathered tokens to the maps' dtype before b_acc and the GELU. In bf16 at
 takes the two-phase form on every step.
 
 On the card (see csrc/crossview.cu for the design): the gather kernel writes
-fp32 (N, V, hid) tokens (single form), or tokens in the maps' dtype that a
-second elementwise kernel turns into fp32 GELU(tok + b_acc) (two-phase form);
-each DiT layer is then LayerNorm -> GEMM (qkv, fp32) -> per-point view
-attention -> GEMM with a gated in-place residual -> LayerNorm -> GEMM + GELU
--> GEMM with a gated residual; then the pool kernel and the final GEMM. The
-residual stream stays fp32 as in the reference kernels. The GEMMs are
-ops/block.py's site GEMM (csrc/gemm_sm90.cu in bf16). The kernels read the
-weights prepared once (`prepare_crossview_weights`: matrices in the maps'
-dtype, vectors fp32); nn/viewattn.py keeps them on its module
-(`prepared_crossview_weights`) until a parameter changes.
+the fp32 residual stream, (N, V, hid) point-major, in either form's
+numerics (`gather_route`: bf16 takes the tensor-core gather); each DiT layer
+is then the modulated LayerNorm -> qkv GEMM with the attention across views
+in its tiles (`attention_route`: bf16 takes csrc/gemm_sm90.cu's qkv tile,
+which never writes qkv to device memory) -> GEMM with a gated in-place
+residual -> LayerNorm -> GEMM + GELU -> GEMM with a gated residual; then
+the pool kernel and the final GEMM. The residual stream stays fp32 as in the
+reference kernels. The GEMMs are ops/block.py's site GEMM. The kernels read
+the weights prepared once (`prepare_crossview_weights`: matrices in the
+maps' dtype, each head's q, k and v rows side by side, vectors fp32, the
+harmonic frequencies on the device); nn/viewattn.py keeps them on its module
+(`prepared_crossview_weights`) until a parameter changes. The plain versions
+read the unpacked layout.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 
 from mvdfusion_tpu_torch.geometry.gridsample import bilinear_gather
 from mvdfusion_tpu_torch.ops import _lib
-from mvdfusion_tpu_torch.ops.block import ACT_GELU, gemm, layernorm
+from mvdfusion_tpu_torch.ops.block import ACT_GELU, _weight_desc, gemm
 
 _DIT_LN_EPS = 1e-6
 
@@ -58,12 +61,13 @@ class AggregatorWeights(NamedTuple):
     wl_b: torch.Tensor  # (1,)
     fin_w: torch.Tensor  # (out_dim, hid)
     fin_b: torch.Tensor
+    qkv_heads: int = 0  # > 0: qkv_w's rows and qkv_b packed per head for this many heads (pack_qkv_heads)
 
 
 class PreparedAggregator(AggregatorWeights):
     """AggregatorWeights as the card's kernels read them
     (prepare_crossview_weights): matrices in the maps' dtype and contiguous,
-    biases fp32; the same layout, so the plain versions read them too."""
+    qkv_w and qkv_b packed per head, biases fp32."""
 
     __slots__ = ()
 
@@ -74,6 +78,7 @@ class GeoWeights(NamedTuple):
 
     kall: torch.Tensor  # (7 * (1 + 2 * nh), hid)
     kmask: torch.Tensor  # (hid,)
+    freqs: torch.Tensor | None = None  # (nh,) fp32 on kall's device, once prepared
 
 
 def should_fuse_crossview(V: int, H: int, W: int, hid: int) -> bool:
@@ -144,24 +149,70 @@ def gather_tokens_bound(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: t
     return bound
 
 
+def pack_qkv_heads(w, b, heads: int):
+    """Reorder qkv rows [Wq; Wk; Wv] (and the bias alike) so each head's q, k
+    and v rows sit side by side: head h at rows 3 dh h .. 3 dh (h + 1), the
+    qkv tile's width (csrc/gemm_sm90.cu)."""
+    K = w.shape[1]
+    dh = w.shape[0] // (3 * heads)
+    wp = w.reshape(3, heads, dh, K).transpose(0, 1).reshape(3 * heads * dh, K)
+    return wp.contiguous(), b.reshape(3, heads, dh).transpose(0, 1).reshape(-1).contiguous()
+
+
+def unpack_qkv_heads(wp, bp, heads: int):
+    """The inverse of pack_qkv_heads: rows [Wq; Wk; Wv] again."""
+    K = wp.shape[1]
+    dh = wp.shape[0] // (3 * heads)
+    return (wp.reshape(heads, 3, dh, K).transpose(0, 1).reshape(3 * heads * dh, K),
+            bp.reshape(heads, 3, dh).transpose(0, 1).reshape(-1))
+
+
+def unprepared_crossview_weights(w: AggregatorWeights) -> AggregatorWeights:
+    """The plain versions' view of weights: qkv rows unpacked (exactly: a
+    reordering), everything else as it is."""
+    if not w.qkv_heads:
+        return w
+    qkv = [unpack_qkv_heads(a, b, w.qkv_heads) for a, b in zip(w.qkv_w, w.qkv_b)]
+    return AggregatorWeights(*w)._replace(qkv_w=[a for a, _ in qkv], qkv_b=[b for _, b in qkv], qkv_heads=0)
+
+
+def _attention_plain(qkv, N: int, V: int, heads: int):
+    """qkv (N * V, 3 hid) fp32 rows [q | k | v] -> (N * V, hid) fp32: softmax
+    attention across each point's V rows, per head."""
+    hid = qkv.shape[-1] // 3
+    dh = hid // heads
+    q, k, v = (a.reshape(N, V, heads, dh) for a in qkv.chunk(3, dim=-1))
+    p = torch.softmax(torch.einsum("nvhd,nwhd->nhvw", q, k) * dh**-0.5, dim=-1)
+    return torch.einsum("nhvw,nwhd->nvhd", p, v).reshape(N * V, hid)
+
+
+def _mm(a, k, b, dt):
+    """a @ k^T (k in (out, in) layout) of dt-rounded operands in fp32, + the
+    fp32 bias (or none)."""
+    y = a.to(dt).float() @ k.to(dt).float().t()
+    return y if b is None else y + b.float()
+
+
+def view_attention_plain(h, qkv_w, qkv_b, V: int, heads: int):
+    """Plain version of `view_attention` on weights packed per head: the qkv
+    product in fp32 (operands in h's dtype) + bias, the attention across
+    views in fp32, rounded once to h's dtype."""
+    w, b = unpack_qkv_heads(qkv_w, qkv_b, heads)
+    return _attention_plain(_mm(h, w, b, h.dtype), h.shape[0] // V, V, heads).to(h.dtype)
+
+
 def _dit_pool_plain(x, w: AggregatorWeights, heads: int, dt):
     """x (N, V, hid) fp32 GELU'd tokens -> (N, out_dim) in dt: the DiT
     layers across V, the softmax pool and final_layer (the reference's
     _dit_pool, shared by both forms)."""
     N, V, hid = x.shape
-    dh = hid // heads
-
-    def mm(a, k, b=None):  # k in (out, in) layout
-        y = a.to(dt).float() @ k.to(dt).float().t()
-        return y if b is None else y + b.float()
-
+    w = unprepared_crossview_weights(w)
+    mm = lambda a, k, b=None: _mm(a, k, b, dt)
     xf = x.reshape(N * V, hid)
     for l in range(len(w.qkv_w)):
         m = w.mods[l].float()
         h = _layernorm_plain(xf) * (1 + m[1]) + m[0]
-        q, k, v = (a.reshape(N, V, heads, dh) for a in mm(h, w.qkv_w[l], w.qkv_b[l]).chunk(3, dim=-1))
-        p = torch.softmax(torch.einsum("nvhd,nwhd->nhvw", q, k) * dh**-0.5, dim=-1)
-        att = torch.einsum("nhvw,nwhd->nvhd", p, v).reshape(N * V, hid)
+        att = _attention_plain(mm(h, w.qkv_w[l], w.qkv_b[l]), N, V, heads)
         xf = xf + m[2] * mm(att, w.proj_w[l], w.proj_b[l])
         h = _layernorm_plain(xf) * (1 + m[4]) + m[3]
         h = F.gelu(mm(h, w.fc1_w[l], w.fc1_b[l]))
@@ -194,104 +245,206 @@ def crossview_two_phase_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeig
     return _dit_pool_plain(x, w, heads, maps_p.dtype)
 
 
-def prepare_crossview_weights(kg: GeoWeights, w: AggregatorWeights, dtype):
+def gather_stream_plain(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, freqs: tuple, two_phase: bool):
+    """Plain version of the gather kernel's output: the fp32 residual stream
+    (N * V, hid), point-major, each element GELU(t + b_acc) (single form) or
+    GELU(float(dt(t)) + b_acc) (two-phase form: the phase-1 token rounded to
+    the maps' dtype first, then b_acc and the GELU in the same pass), t the
+    token sum of gather_tokens_plain."""
+    dt = maps_p.dtype
+    N, hid = b_acc.shape
+    t = gather_tokens_plain(xy, pts, centers, mask, maps_p, kg, freqs).transpose(0, 1)  # (N, V, hid)
+    if two_phase:
+        t = t.to(dt).float()
+    return F.gelu(t + b_acc.float()[:, None, :]).reshape(-1, hid)
+
+
+def prepare_crossview_weights(kg: GeoWeights, w: AggregatorWeights, dtype, heads: int, freqs: tuple | None = None):
     """(kg, w) as the card's kernels read them for maps of `dtype`: matrices
-    cast to dtype and contiguous (aliases where they already are), vectors
-    fp32; w's per-step mods as they come. Prepared weights pass unchanged."""
+    cast to dtype and contiguous (aliases where they already are), qkv_w and
+    qkv_b packed per head, vectors fp32, `freqs` as an fp32 tensor on kall's
+    device (made once here, so a call copies nothing from the host); w's
+    per-step mods as they come. Prepared weights pass unchanged."""
     mat = lambda t: t.detach().to(dtype).contiguous()
     vec = lambda t: t.detach().float().contiguous()
     if not isinstance(w, PreparedAggregator):
+        qkv = [pack_qkv_heads(mat(a), vec(b), heads) for a, b in zip(w.qkv_w, w.qkv_b)]
         w = PreparedAggregator(
-            qkv_w=[mat(t) for t in w.qkv_w], qkv_b=[vec(t) for t in w.qkv_b],
+            qkv_w=[a for a, _ in qkv], qkv_b=[b for _, b in qkv],
             proj_w=[mat(t) for t in w.proj_w], proj_b=[vec(t) for t in w.proj_b],
             fc1_w=[mat(t) for t in w.fc1_w], fc1_b=[vec(t) for t in w.fc1_b],
             fc2_w=[mat(t) for t in w.fc2_w], fc2_b=[vec(t) for t in w.fc2_b],
             mods=w.mods, wl_w=mat(w.wl_w), wl_b=vec(w.wl_b), fin_w=mat(w.fin_w), fin_b=vec(w.fin_b),
+            qkv_heads=heads,
         )
-    elif w.fin_w.dtype != dtype:
-        raise ValueError(f"aggregator weights prepared for {w.fin_w.dtype}, maps in {dtype}")
-    return GeoWeights(kall=mat(kg.kall), kmask=vec(kg.kmask)), w
+    elif w.fin_w.dtype != dtype or w.qkv_heads != heads:
+        raise ValueError(f"aggregator weights prepared for {w.fin_w.dtype} and {w.qkv_heads} heads, "
+                         f"used with maps in {dtype} and {heads} heads")
+    f_t = kg.freqs
+    if f_t is None and freqs is not None:
+        f_t = torch.tensor(freqs, dtype=torch.float32).to(kg.kall.device)
+    return GeoWeights(kall=mat(kg.kall), kmask=vec(kg.kmask), freqs=f_t), w
 
 
-def prepared_crossview_weights(owner, params, build, dtype):
-    """prepare_crossview_weights(*build(), dtype), kept on `owner` (GridAttn's
-    module) until the data pointer, version or dtype of one of `params`
-    (every parameter that `build` reads) changes, or dtype does."""
+def prepared_crossview_weights(owner, params, build, dtype, heads: int, freqs: tuple):
+    """prepare_crossview_weights(*build(), dtype, heads, freqs), kept on
+    `owner` (GridAttn's module) until the data pointer, version or dtype of
+    one of `params` (every parameter that `build` reads) changes, or dtype
+    does."""
     return _lib.cached(owner, "_mvdf_crossview_weights", params, dtype,
-                       lambda: prepare_crossview_weights(*build(), dtype))
+                       lambda: prepare_crossview_weights(*build(), dtype, heads, freqs))
+
+
+# ------------------------------------------------------------ kernel launchers
+QKV_TILE_ROWS = 128  # the qkv tile's A box (csrc/gemm_sm90.cu)
+QKV_TILE_N = 96  # one head's packed q, k and v rows at dh = 32
+
+
+def gather_route(dtype, hid: int, nh: int) -> str:
+    """The gather kernel for these maps, chosen explicitly: "mma" (the
+    tensor-core gather) for bf16 maps with hid a multiple of 64 up to 512
+    and at most 7 harmonics (G <= 112), else "simt" (the CUDA-core loop).
+    Each counts under cv_gather_<route>."""
+    return "mma" if dtype == torch.bfloat16 and hid % 64 == 0 and hid <= 512 and nh <= 7 else "simt"
+
+
+def attention_route(dtype, V: int, hid: int, heads: int) -> str:
+    """Where the view attention runs, chosen explicitly: "fused" (inside the
+    qkv GEMM's tiles, csrc/gemm_sm90.cu: bf16, dh = 32, hid <= 256, V <= 16)
+    or "standalone" (the qkv GEMM writes fp32 qkv, then crossview.cu's
+    attention kernel). Counted under cv_qkv_attention and cv_attention."""
+    fits = dtype == torch.bfloat16 and hid == 32 * heads and hid <= 256 and V <= 16
+    return "fused" if fits else "standalone"
+
+
+def qkv_tile_points(V: int) -> int:
+    """Whole points a qkv tile holds: floor(128 / V)."""
+    return QKV_TILE_ROWS // V
+
+
+def qkv_tile_plan(N: int, V: int):
+    """The qkv tile's rows (first row, rows) over the N * V token rows,
+    point-major, as the kernel walks them: qkv_tile_points(V) points a tile,
+    the last tile ragged."""
+    step = qkv_tile_points(V) * V
+    return [(r, min(step, N * V - r)) for r in range(0, N * V, step)]
+
+
+def _freq_tensor(kg: GeoWeights, freqs: tuple, device):
+    """The harmonic frequencies on the device: prepared weights carry them."""
+    if kg.freqs is not None:
+        if kg.freqs.numel() != len(freqs):
+            raise ValueError(f"prepared for {kg.freqs.numel()} harmonics, called with {len(freqs)}")
+        return kg.freqs
+    return torch.tensor(freqs, dtype=torch.float32).to(device)
+
+
+_GATHER_MODES = {"single": 0, "tokens": 1, "two_phase": 2}
+
+
+def launch_gather(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, freqs: tuple, mode: str):
+    """The gather kernel: "single" and "two_phase" write the fp32 residual
+    stream (N * V, hid) (gather_stream_plain's), "tokens" the two-phase
+    form's phase-1 tokens (N, V, hid) in maps_p's dtype (the transpose of
+    gather_tokens_plain's, rounded). Counts under cv_gather_<route>."""
+    V, N, _ = xy.shape
+    _, H, W_, hid = maps_p.shape
+    dt = maps_p.dtype
+    route = gather_route(dt, hid, len(freqs))
+    f = lambda t: t.float().contiguous()
+    shape, odt = ((N, V, hid), dt) if mode == "tokens" else ((N * V, hid), torch.float32)
+    out = torch.empty(shape, dtype=odt, device=maps_p.device)
+    bacc = None if mode == "tokens" else b_acc.to(dt).contiguous()
+    _lib.call(
+        "mvdf_cv_gather", f(xy), f(pts), f(centers), f(mask), bacc, maps_p.contiguous(),
+        kg.kall.to(dt).contiguous(), f(kg.kmask), _freq_tensor(kg, freqs, maps_p.device), len(freqs), out,
+        V, N, H, W_, hid, _lib.dtype_code(dt), _GATHER_MODES[mode], int(route == "mma"),
+    )
+    _lib.LAUNCHES[f"cv_gather_{route}"] += 1
+    return out
+
+
+def launch_gather_tokens(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: tuple):
+    """The two-phase form's phase 1 on the card: (N, V, hid) tokens in
+    maps_p's dtype, point-major (the transpose of gather_tokens_plain)."""
+    return launch_gather(xy, pts, centers, mask, None, maps_p, kg, freqs, "tokens")
+
+
+def dit_layernorm(x, scale, shift, dt):
+    """csrc/crossview.cu's DiT LayerNorm: LN(x) * (1 + scale) + shift over
+    the fp32 stream x (M, hid), eps 1e-6, out in dt."""
+    M, C = x.shape
+    y = torch.empty(M, C, dtype=dt, device=x.device)
+    _lib.call("mvdf_cv_layernorm", x, scale.float().contiguous(), shift.float().contiguous(), y, M, C,
+              float(_DIT_LN_EPS), _lib.dtype_code(dt))
+    return y
+
+
+def view_attention(h, qkv_w, qkv_b, V: int, heads: int, route: str | None = None):
+    """att (N * V, hid) in h's dtype: the attention across each point's V
+    rows of qkv = h @ qkv_w^T + qkv_b, with qkv_w and qkv_b packed per head
+    (pack_qkv_heads). `route`: attention_route's choice, or "standalone" to
+    take it for a bf16 comparison. The fused route never writes qkv to
+    device memory."""
+    M, K = h.shape
+    hid = qkv_w.shape[0] // 3
+    dh = hid // heads
+    fits = attention_route(h.dtype, V, hid, heads)
+    route = route or fits
+    if route not in ("fused", "standalone") or (route == "fused" and fits != "fused"):
+        raise ValueError(f"view attention route {route!r} does not take {h.dtype} at V={V}, hid={hid}, {heads} heads")
+    out = torch.empty(M, hid, dtype=h.dtype, device=h.device)
+    if route == "fused":
+        h = h.contiguous()
+        _lib.call("mvdf_qkv_attention_sm90", h, _weight_desc(qkv_w, QKV_TILE_N), qkv_b.float().contiguous(), out,
+                  M, K, V, qkv_tile_points(V), heads, float(dh**-0.5))
+        _lib.LAUNCHES["cv_qkv_attention"] += 1
+    else:
+        qkv = gemm(h, qkv_w, qkv_b, out_dtype=torch.float32)
+        _lib.call("mvdf_cv_attention", qkv, out, M // V, V, heads, dh, float(dh**-0.5), _lib.dtype_code(h.dtype))
+        _lib.LAUNCHES["cv_attention"] += 1
+    return out
 
 
 def _launch_dit_pool(x, N: int, V: int, w: PreparedAggregator, heads: int, dt):
     """x (N * V, hid) fp32 GELU'd tokens, updated in place -> (N, out_dim)."""
     hid = x.shape[-1]
-    code = _lib.dtype_code(dt)
-    att = torch.empty(N * V, hid, dtype=dt, device=x.device)
     for l in range(len(w.qkv_w)):
         m = w.mods[l].float()
-        h = layernorm(x, 1 + m[1], m[0], _DIT_LN_EPS, out_dtype=dt)
-        qkv = gemm(h, w.qkv_w[l], w.qkv_b[l], out_dtype=torch.float32)
-        _lib.call("mvdf_cv_attention", qkv, att, N, V, heads, hid // heads,
-                  float((hid // heads) ** -0.5), code)
+        att = view_attention(dit_layernorm(x, m[1], m[0], dt), w.qkv_w[l], w.qkv_b[l], V, heads)
         gemm(att, w.proj_w[l], w.proj_b[l], gate=m[2], res1=x, out=x)
-        h = layernorm(x, 1 + m[4], m[3], _DIT_LN_EPS, out_dtype=dt)
-        h = gemm(h, w.fc1_w[l], w.fc1_b[l], act=ACT_GELU)
+        h = gemm(dit_layernorm(x, m[4], m[3], dt), w.fc1_w[l], w.fc1_b[l], act=ACT_GELU)
         gemm(h, w.fc2_w[l], w.fc2_b[l], gate=m[5], res1=x, out=x)
+    return gemm(launch_pool(x, N, V, w.wl_w, w.wl_b, dt), w.fin_w, w.fin_b)
+
+
+def launch_pool(x, N: int, V: int, wl_w, wl_b, dt):
+    """The pool kernel: (N, hid) in dt, sum over each point's V rows of x
+    weighted by softmax_v(dt(x) . wl_w + wl_b)."""
+    hid = x.shape[-1]
     pooled = torch.empty(N, hid, dtype=dt, device=x.device)
-    _lib.call("mvdf_cv_pool", x, w.wl_w.reshape(-1), w.wl_b.reshape(-1), pooled, N, V, hid, code)
-    return gemm(pooled, w.fin_w, w.fin_b)
+    _lib.call("mvdf_cv_pool", x, wl_w.reshape(-1), wl_b.reshape(-1), pooled, N, V, hid, _lib.dtype_code(dt))
+    return pooled
 
 
 def launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
                      heads: int, freqs: tuple):
     """K4's single form on the card: gather, DiT layers, pool and output
     GEMM (no counting); kg and w as the parameters are or prepared."""
-    V, N, _ = xy.shape
-    _, H, W_, hid = maps_p.shape
-    dt = maps_p.dtype
-    kg, w = prepare_crossview_weights(kg, w, dt)
-    c = lambda t: t.to(dt).contiguous()
-    f = lambda t: t.float().contiguous()
-    x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
-    freq_t = torch.tensor(freqs, dtype=torch.float32, device=maps_p.device)
-    _lib.call(
-        "mvdf_cv_gather", f(xy), f(pts), f(centers), f(mask),
-        c(b_acc), c(maps_p), kg.kall, kg.kmask,
-        freq_t, len(freqs), x, V, N, H, W_, hid, _lib.dtype_code(dt),
-    )
-    return _launch_dit_pool(x, N, V, w, heads, dt)
-
-
-def launch_gather_tokens(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: tuple):
-    """The two-phase form's phase 1 on the card: (N, V, hid) tokens in
-    maps_p's dtype, point-major (the transpose of gather_tokens_plain)."""
-    V, N, _ = xy.shape
-    _, H, W_, hid = maps_p.shape
-    dt = maps_p.dtype
-    tok = torch.empty(N, V, hid, dtype=dt, device=maps_p.device)
-    freq_t = torch.tensor(freqs, dtype=torch.float32, device=maps_p.device)
-    _lib.call(
-        "mvdf_cv_gather_tokens", xy.float().contiguous(), pts.float().contiguous(),
-        centers.float().contiguous(), mask.float().contiguous(), maps_p.contiguous(),
-        kg.kall.to(dt).contiguous(), kg.kmask.float().contiguous(),
-        freq_t, len(freqs), tok, V, N, H, W_, hid, _lib.dtype_code(dt),
-    )
-    return tok
+    kg, w = prepare_crossview_weights(kg, w, maps_p.dtype, heads, freqs)
+    x = launch_gather(xy, pts, centers, mask, b_acc, maps_p, kg, freqs, "single")
+    return _launch_dit_pool(x, xy.shape[1], xy.shape[0], w, heads, maps_p.dtype)
 
 
 def launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
                                heads: int, freqs: tuple):
-    """K4's two-phase form on the card: phase-1 tokens in maps_p's dtype,
-    GELU(tok + b_acc) into the fp32 stream, then the same DiT, pool and
-    output GEMM as the single form (no counting); kg and w as the parameters
-    are or prepared."""
-    V, N, _ = xy.shape
-    hid = maps_p.shape[-1]
-    dt = maps_p.dtype
-    kg, w = prepare_crossview_weights(kg, w, dt)
-    tok = launch_gather_tokens(xy, pts, centers, mask, maps_p, kg, freqs)
-    x = torch.empty(N * V, hid, dtype=torch.float32, device=maps_p.device)
-    _lib.call("mvdf_cv_token_gelu", tok, b_acc.to(dt).contiguous(), x, N, V, hid, _lib.dtype_code(dt))
-    return _launch_dit_pool(x, N, V, w, heads, dt)
+    """K4's two-phase form on the card: the gather rounds each token to
+    maps_p's dtype, adds b_acc and applies the GELU into the fp32 stream in
+    one pass, then the same DiT, pool and output GEMM as the single form (no
+    counting); kg and w as the parameters are or prepared."""
+    kg, w = prepare_crossview_weights(kg, w, maps_p.dtype, heads, freqs)
+    x = launch_gather(xy, pts, centers, mask, b_acc, maps_p, kg, freqs, "two_phase")
+    return _launch_dit_pool(x, xy.shape[1], xy.shape[0], w, heads, maps_p.dtype)
 
 
 def crossview_aggregate(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
