@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
     python3 chip_smoke.py --profile-only STEPS
+    python3 chip_smoke.py --k1-sweep
 
 --profile-only runs the device and build phases, reads K4 and K4b by stage
 (device time per kernel, traced) and against their plain versions in bf16
 ulps, answers one 1-step request to warm up, traces STEPS flagship steps
 and STEPS steps of the evaluation scene (CFG batch 30) on the default route
 and stops (no checks, no JSON): it reads kernel names only, so the same
-script profiles two trees of the port alike.
+script profiles two trees of the port alike. --k1-sweep builds, then times
+K1 at every shape of GN_STEP (CFG batches 16 and 30) on each cluster size
+and two other thread counts, with the card's count of clusters held at
+once, and logs CTA (0, 0)'s steps from K1's device clock stamps: the data
+ops/groupnorm.py's plan cost model was fitted to.
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -22,7 +27,13 @@ Phases, each printed with elapsed seconds as it starts and ends:
               the shapes of the flagship and of the eval path in bf16 (and
               at small shapes in fp32), with the tolerance stated; times
               kernel, plain version and, where one exists, the one PyTorch
-              call computing the same thing. K2 has three rows: CLIP, and
+              call computing the same thing. K1 has a row at each (B, N, C,
+              act) of the flagship step (B=16) and the eval step (B=30),
+              GN_STEP, held to 1 bf16 ulp and a mean of 3e-4 x max|plain|,
+              bit-equal on a second launch, timed beside F.group_norm; with
+              the sums a step weighted by GN_STEP. The sites' LayerNorm has
+              rows at (16384, 320), (4096, 640) and K6's (1024, 1280), timed
+              beside F.layer_norm. K2 has three rows: CLIP, and
               its tile inside K3 at the 32^2 and 16^2 sites (the rows'
               launches: attention_site_n1024 and _n256, counted by K3's
               launcher); K5 logs its occupancy. K4's gather and its qkv tile
@@ -37,7 +48,8 @@ Phases, each printed with elapsed seconds as it starts and ends:
               --steps eta=1 DDIM steps for 8 target views at CFG 2.5, decode;
               checks shapes, finiteness, the [0, 1] image range and that every
               kernel's launch count rose by what the path implies (every
-              bf16 product on the wgmma GEMM, none on the wmma tile)
+              bf16 product on the wgmma GEMM, none on the wmma tile; K1's
+              calls by shape as GN_STEP says)
   5. eval     the same model runs the evaluation path (configs/gso.yaml's
               protocol: 1 input view -> 15 target views on the 16-view GSO
               rig, CFG batch 30) on one in-memory scene of random 256^2
@@ -63,8 +75,8 @@ Phases, each printed with elapsed seconds as it starts and ends:
               route's
   8. stages   K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
-              host); last, since a profiler session slows the process's
-              later launches on the host
+              host), and K1 (one kernel a call); last, since a profiler
+              session slows the process's later launches on the host
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
@@ -270,27 +282,8 @@ def kernel_checks():
     bf = torch.bfloat16
     rows = {}
 
-    # K1 GroupNorm: the UNet's 32^2 C=320 slices at the eval path's CFG batch
-    # 2B=30 and the flagship's 2B=16 (timed)
-    log(" K1 groupnorm")
-    for dt, shape, rtol in ((torch.float32, (2, 64, 96), 1e-4), (bf, (30, 1024, 320), 2e-2),
-                            (bf, (16, 1024, 320), 2e-2)):
-        x = rnd(*shape, dt=dt) * 3 + 1
-        w, b = 1 + rnd(shape[-1], std=0.1), rnd(shape[-1], std=0.1)
-        for act, eps in (("silu", 1e-5), ("none", 1e-6)):
-            compare(f"groupnorm {shape} act={act} eps={eps}", K1.launch_group_norm(x, w, b, 32, eps, act),
-                    K1.group_norm_plain(x, w, b, 32, eps, act), rtol,
-                    "fp32 statistics on both sides; bf16 output rounding" if dt == bf else "fp32 sum order", dt)
-    err = compare("groupnorm timed", K1.launch_group_norm(x, w, b, 32, 1e-6), K1.group_norm_plain(x, w, b, 32, 1e-6),
-                  2e-2, "bf16 output rounding", bf)
-    ms = time_ms(lambda: K1.launch_group_norm(x, w, b, 32, 1e-6), ITERS)
-    plain_ms = time_ms(lambda: K1.group_norm_plain(x, w, b, 32, 1e-6), ITERS)
-    lib_ms = time_ms(lambda: F.group_norm(x.transpose(1, 2), 32, w.to(bf), b.to(bf), 1e-6), ITERS)
-    bms, by = bound(10 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
-    rows["groupnorm"] = dict(name="groupnorm", route="cuda", source="mvdfusion_tpu_torch/csrc/groupnorm.cu",
-                             replaces="mvdfusion_tpu/ops/groupnorm.py:54", max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                             shape="x (16, 1024, 320) bf16, 32 groups, eps 1e-6")
+    rows.update(groupnorm_checks(rnd))
+    rows.update(layernorm_checks(rnd))
 
     # K2 attention. bf16 at dh <= 128 takes the tensor-core tile, held to 1
     # bf16 ulp: CLIP (ragged N=257, dh=64, the pv form) and the self-attention
@@ -446,6 +439,210 @@ def kernel_checks():
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms at {r['shape']}")
     return rows
+
+
+# K1's calls in one UNet step at CFG batch 2B, by (N, C, act) (nn/unet.py):
+# the 22 ResBlocks' two GroupNorms (SiLU, eps 1e-5) over their input and
+# output channels, norm_out, and the 26 sites' norms (none, eps 1e-6): 16
+# inside K3 (32^2 and 16^2), 8 at 8^2 and 2 at the 4^2 middle on the module
+# path. 71 calls, 55 of them counted under "groupnorm". The slice and eval
+# phases hold _lib.GN_SHAPES to this table.
+GN_STEP = {
+    (1024, 320, "silu"): 8, (1024, 320, "none"): 8, (1024, 640, "silu"): 2, (1024, 960, "silu"): 1,
+    (256, 320, "silu"): 1, (256, 640, "silu"): 6, (256, 640, "none"): 8, (256, 960, "silu"): 1,
+    (256, 1280, "silu"): 1, (256, 1920, "silu"): 1,
+    (64, 640, "silu"): 1, (64, 1280, "silu"): 6, (64, 1280, "none"): 8, (64, 1920, "silu"): 1,
+    (64, 2560, "silu"): 2,
+    (16, 1280, "silu"): 11, (16, 1280, "none"): 2, (16, 2560, "silu"): 3,
+}
+GN_EPS = {"silu": 1e-5, "none": 1e-6}
+GN_BATCH = {"slice": 16, "eval": 2 * EVAL_TARGETS}  # the UNet's CFG batch on each path
+
+
+def gn_inputs(rnd, B, N, C, dt):
+    return rnd(B, N, C, dt=dt) * 3 + 1, 1 + rnd(C, std=0.1), rnd(C, std=0.1)
+
+
+def groupnorm_checks(rnd):
+    """K1 against its plain version: fp32 at a small shape (1e-4 x max(1,
+    max|plain|)); bf16 at every (B, N, C, act) of the flagship step (B=16)
+    and the eval step (B=30), 1 bf16 ulp of max|plain| and a mean of 3e-4 x
+    max|plain|, a second launch bit-equal; each timed in device time beside
+    F.group_norm and the plain version. Logs K1's device ms a step: the rows'
+    times weighted by GN_STEP."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvdfusion_tpu_torch.ops import groupnorm as K1
+
+    bf = torch.bfloat16
+    rows, per_step = {}, {}
+    log(" K1 groupnorm")
+    x, w, b = gn_inputs(rnd, 2, 64, 96, torch.float32)
+    for act, eps in GN_EPS.items():
+        compare(f"groupnorm (2, 64, 96) act={act} eps={eps}", K1.launch_group_norm(x, w, b, 32, eps, act),
+                K1.group_norm_plain(x, w, b, 32, eps, act), 1e-4, "fp32 sum order", torch.float32)
+    for phase, B in GN_BATCH.items():
+        total = 0.0
+        for (N, C, act), n in GN_STEP.items():
+            x, w, b = gn_inputs(rnd, B, N, C, bf)
+            eps = GN_EPS[act]
+            run = lambda: K1.launch_group_norm(x, w, b, 32, eps, act)
+            name = f"groupnorm {B}x{N}x{C} {act}"
+            got = run()
+            err = compare_ulp(name, got, K1.group_norm_plain(x, w, b, 32, eps, act),
+                              "fp32 statistics on both sides, sums in another order; one bf16 rounding",
+                              mean_tol=3e-4)
+            check(torch.equal(got, run()), f"{name}: two runs differ")
+            ms = device_ms(run, ITERS)
+            host_ms = time_ms(run, ITERS)
+            plain_ms = device_ms(lambda: K1.group_norm_plain(x, w, b, 32, eps, act), max(2, ITERS // 4))
+            lib_ms = device_ms(lambda: F.group_norm(x.transpose(1, 2), 32, w.to(bf), b.to(bf), eps), ITERS)
+            bms, by = bound(10 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
+            plan = K1.card_plan(B, N, C, bf)
+            total += n * ms
+            log(f"  {name}: {ms:.4f} ms, F.group_norm {lib_ms:.4f}, bound {bms:.4f} ({bms / ms * 100:.0f}%), "
+                f"{n} a step; back-to-back calls from the host {host_ms:.4f} ms a call; plan k={plan.k} "
+                f"rows={plan.rows} threads={plan.threads} smem={plan.smem}")
+            rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/groupnorm.cu",
+                              replaces="mvdfusion_tpu/ops/groupnorm.py:54", max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms, per_step=n,
+                              host_ms=host_ms,
+                              shape=f"x ({B}, {N}, {C}) bf16, 32 groups, eps {eps}, act {act}",
+                              phase=phase, launch_key=(B, N, C, act))
+        per_step[phase] = total
+        log(f"  K1 a {'flagship' if phase == 'slice' else 'eval'} step (CFG batch {B}): {total:.4f} ms in "
+            f"{sum(GN_STEP.values())} calls")
+    r = dict(rows["groupnorm 16x1024x320 none"], name="groupnorm")
+    for key in ("phase", "launch_key", "per_step", "host_ms"):
+        r.pop(key)
+    r["step_ms"] = per_step
+    return {"groupnorm": r, **rows}
+
+
+# the sites' LayerNorm: LN1 and LN3 of the 16 split sites a step at 32^2
+# (16 x 1024 rows of C=320) and 16^2 (16 x 256 of C=640), and of the forms
+# route's 8 big-C sites (16 x 64 of C=1280)
+LN_ROWS = ((16384, 320, "slice"), (4096, 640, "slice"), (1024, 1280, "forms"))
+LN_PER_STEP = 2 * SITES_PER_LEVEL
+
+
+def layernorm_checks(rnd):
+    """block.cu's LayerNorm against _ln_plain at the sites' widths in bf16:
+    rows at the residual stream's scale (mean 4, std 1) and constant rows,
+    1 bf16 ulp of max|plain| and a mean of 3e-4 x max|plain|, a second launch
+    bit-equal; timed in device time beside F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    bf = torch.bfloat16
+    rows, total = {}, 0.0
+    log(" K3 layernorm")
+    for M, C, phase in LN_ROWS:
+        x = torch.cat([rnd(M - 8, C) + 4, torch.full((8, C), 2.5, device="cuda")]).to(bf)
+        w, b = 1 + rnd(C, std=0.1), rnd(C, std=0.1)
+        name = f"layernorm {M}x{C}"
+        got = K3.layernorm(x, w, b)
+        err = compare_ulp(name, got, K3._ln_plain(x, w, b), "E[x^2] - mean^2 in fp32 on both sides, sums in "
+                          "another order; one bf16 rounding", mean_tol=3e-4)
+        check(torch.equal(got, K3.layernorm(x, w, b)), f"{name}: two runs differ")
+        ms = device_ms(lambda: K3.layernorm(x, w, b), ITERS)
+        host_ms = time_ms(lambda: K3.layernorm(x, w, b), ITERS)
+        plain_ms = device_ms(lambda: K3._ln_plain(x, w, b), max(2, ITERS // 4))
+        lib_ms = device_ms(lambda: F.layer_norm(x, (C,), w.to(bf), b.to(bf), 1e-5), ITERS)
+        bms, by = bound(8 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
+        if phase == "slice":
+            total += LN_PER_STEP * ms
+        log(f"  {name}: {ms:.4f} ms, F.layer_norm {lib_ms:.4f}, bound {bms:.4f} ({bms / ms * 100:.0f}%); "
+            f"back-to-back calls from the host {host_ms:.4f} ms a call")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/block.cu (gemm.cuh::ln_row)",
+                          replaces="mvdfusion_tpu/ops/block.py:315" if C < 1280 else "mvdfusion_tpu/ops/block.py:338",
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                          shape=f"x ({M}, {C}) bf16, mean 4 std 1, 8 constant rows", phase=phase,
+                          launch_key=(M, C))
+    log(f"  the sites' LayerNorm a flagship step: {total:.4f} ms in {2 * LN_PER_STEP} calls")
+    return rows
+
+
+def k1_sweep() -> None:
+    """K1 at every shape of GN_STEP at CFG batches 16 and 30 in bf16, on each
+    cluster size k the card schedules: device ms and the gap to the plain
+    version (1 bf16 ulp of max|plain| held), the plan's own k marked."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.ops import groupnorm as K1
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s, std=1.0, dt=torch.float32: (torch.randn(s, generator=g, device=dev) * std).to(dt)
+    bf = torch.bfloat16
+    for B in GN_BATCH.values():
+        for N, C in dict.fromkeys((N, C) for N, C, _ in GN_STEP):
+            x, w, b = gn_inputs(rnd, B, N, C, bf)
+            want = K1.group_norm_plain(x, w, b, 32, 1e-5, "silu")
+            chosen = K1.card_plan(B, N, C, bf).k
+            cells = []
+            for k in (1, 2, 4, 8, 16):
+                plan = K1.plan_group_norm(B, N, C, bf, k=k)
+                held = _lib.gn_max_clusters(plan.k, plan.threads, plan.smem, plan.resident, 1)
+                if held < 1:
+                    cells.append(f"k={k} not schedulable")
+                    continue
+                run = lambda plan=plan, act="silu": K1.launch_group_norm(x, w, b, 32, 1e-5, act, plan=plan)
+                compare_ulp(f"groupnorm {B}x{N}x{C} k={k}", run(), want, "the sweep", mean_tol=3e-4)
+                cells.append(f"k={k}{'*' if k == chosen else ''} {device_ms(run, ITERS):.4f}"
+                             f"{'' if plan.resident else ' (re-read)'} [{held} clusters at once]")
+                if k == chosen:
+                    cells.append(f"act none {device_ms(lambda: run(act='none'), ITERS):.4f}")
+                    for target in (128, 512):  # other thread counts at this k
+                        other = K1.plan_group_norm(B, N, C, bf, k=k, threads=target)
+                        if other.threads != plan.threads:
+                            cells.append(f"{other.threads} threads {device_ms(lambda: run(plan=other), ITERS):.4f}")
+            log(f"  k1 sweep {B}x{N}x{C}: " + ", ".join(cells))
+    # where a call's time goes: a trivial PyTorch kernel's device_ms as the
+    # launch floor, then CTA (0, 0)'s steps from K1's clock stamps
+    tiny = torch.zeros(256, device=dev)
+    log(f"  k1 sweep: a trivial kernel (256-element add) {device_ms(lambda: tiny.add_(1.0), ITERS):.4f} ms a call")
+    for B, N, C in ((16, 1024, 320), (30, 1024, 320), (16, 1024, 960), (16, 256, 640), (16, 64, 1280),
+                    (16, 16, 1280)):
+        x, w, b = gn_inputs(rnd, B, N, C, bf)
+        plan = K1.card_plan(B, N, C, bf)
+        stamps = torch.zeros(8 + 2 * B * plan.k, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            K1.launch_group_norm(x, w, b, 32, 1e-5, "silu", stamps=stamps)
+        t = stamps.tolist()
+        ctas = t[8:]
+        starts, ends = ctas[0::2], ctas[1::2]
+        log(f"  k1 sweep {B}x{N}x{C} silu, {plan}: CTA (0, 0) by step (us) "
+            + ", ".join(f"{name} {(t[i + 1] - t[i]) / 1e3:.2f}" for i, name in enumerate(K1.K1_PHASES))
+            + f"; CTAs start over {(max(starts) - min(starts)) / 1e3:.2f} us, end over "
+            f"{(max(ends) - min(ends)) / 1e3:.2f} us, first start to last end {(max(ends) - min(starts)) / 1e3:.2f} us")
+
+
+def k1_launches_a_call(iters: int = 10) -> None:
+    """K1 traced by kernel name over `iters` calls at the flagship's 32^2
+    shape: one kernel a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvdfusion_tpu_torch.ops import groupnorm as K1
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = (torch.randn(16, 1024, 320, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+    w, b = torch.ones(320, device=dev), torch.zeros(320, device=dev)
+    K1.launch_group_norm(x, w, b, 32, 1e-5, "silu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            K1.launch_group_norm(x, w, b, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    log(f"  K1: {len(kernels) / iters:g} kernels a call over {iters} calls ({sorted(set(kernels))})")
+    check(len(kernels) == iters, f"K1: {len(kernels)} kernels in {iters} calls, one a call expected")
 
 
 K4_CALL_LAUNCHES = 21  # gather + 3 layers x (2 LayerNorms, qkv + attention, proj, fc1, fc2) + pool + final GEMM
@@ -773,6 +970,16 @@ def gemm_checks(rnd):
     return rows
 
 
+def check_gn_shapes(shapes, B: int, steps: int) -> int:
+    """K1's calls at the UNet's CFG batch B (_lib.GN_SHAPES) held to
+    `steps` x GN_STEP; returns the calls at other batches (the VAE's)."""
+    got = {(N, C, act): n for (b, N, C, act), n in shapes.items() if b == B}
+    want = {key: steps * n for key, n in GN_STEP.items()}
+    log(f"  K1 by shape at batch {B}: {got}")
+    check(got == want, f"K1's calls by (N, C, act) at batch {B}: {got}, GN_STEP implies {want}")
+    return sum(n for (b, *_), n in shapes.items() if b != B)
+
+
 # ---------------------------------------------------------------- phase 4
 def build_model(device: str = "cuda", cfg=None):
     """The full-width model (or `cfg`) with random weights from SEED, towers
@@ -887,11 +1094,16 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "transformer_block_big": 0,
         "gemm_sm90": REQUESTS * steps * GEMMS_PER_STEP,
         "gemm_wmma": 0,
+        "layernorm": REQUESTS * steps * 2 * LN_PER_STEP,  # LN1 and LN3 of the 16 split sites
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    vae = check_gn_shapes(_lib.GN_SHAPES, GN_BATCH["slice"], REQUESTS * steps)
+    check(vae == REQUESTS * (VAE_GN_ENCODE + VAE_GN_DECODE), f"K1 in the VAE: {vae} calls")
     counts.update(_lib.GEMM_SHAPES)
+    counts.update(_lib.GN_SHAPES)
+    counts.update(_lib.LN_SHAPES)
     if profile:
         profile_steps(model, prepared, profile)
     B = len(scene["target_idx"])
@@ -973,11 +1185,15 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None, 
         "cv_attention": 0,
         "gemm_sm90": steps * GEMMS_PER_STEP,
         "gemm_wmma": 0,
+        "layernorm": steps * 2 * LN_PER_STEP,
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    check_gn_shapes(_lib.GN_SHAPES, GN_BATCH["eval"], steps)
     counts.update(_lib.GEMM_SHAPES)
+    counts.update(_lib.GN_SHAPES)
+    counts.update(_lib.LN_SHAPES)
     if profile:
         profile_steps(model, eval_prepared(model, dev), profile, what="eval, CFG batch 30",
                       feed_prev_depth=cfg.feed_prev_depth)
@@ -1021,7 +1237,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
             torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1, dev)
-        counts, shapes = dict(_lib.LAUNCHES), dict(_lib.GEMM_SHAPES)
+        counts, shapes = dict(_lib.LAUNCHES), {**_lib.GEMM_SHAPES, **_lib.LN_SHAPES}
         # one DDIM step (the first of a --forms-steps schedule) from the same
         # latents and noise, forms on, then off
         g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1062,6 +1278,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         "cv_attention": 0,
         "gemm_sm90": steps * GEMMS_PER_STEP_FORMS,
         "gemm_wmma": 0,
+        "layernorm": steps * 2 * (LN_PER_STEP // 2 + SITES_PER_LEVEL),  # K3's 8 sites and K6's 8
     }
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
@@ -1395,6 +1612,8 @@ def main() -> int:
     ap.add_argument("--profile-only", type=int, default=0, metavar="STEPS",
                     help="only build the kernels, read K4 and K4b by stage and against their plain versions, "
                          "and trace STEPS flagship and STEPS evaluation steps on the default route")
+    ap.add_argument("--k1-sweep", action="store_true",
+                    help="only build the kernels and time K1 at every step shape on each cluster size")
     args = ap.parse_args()
 
     if not (HERE / "mvdfusion_tpu_torch" / "csrc").is_dir():
@@ -1427,6 +1646,11 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+
+    if args.k1_sweep:
+        with Phase("k1 sweep"):
+            k1_sweep()
+        return 0
 
     if args.profile_only:
         with Phase("profile"):
@@ -1465,6 +1689,7 @@ def main() -> int:
 
     with Phase("stages"):
         crossview_stage_checks(rows)
+        k1_launches_a_call()
 
     # launches of the phase that drives each kernel's path: the flagship
     # slice for K1-K4, the evaluation scene for the two-phase K4, the forms

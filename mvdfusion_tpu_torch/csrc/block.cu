@@ -24,13 +24,39 @@
 
 namespace mvdf {
 
-// one warp per row of C <= 32 PL
-template <int PL>
-__global__ void __launch_bounds__(256) layernorm_kernel(const void* x, int x_bf16, const float* gamma,
-                                                        const float* beta, void* y, int y_bf16, int M, int C,
-                                                        float eps) {
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row < M) layernorm_row<PL>(x, x_bf16, gamma, beta, y, y_bf16, row, C, eps);
+// LayerNorm over rows of C: L lanes a row (ln_row), 256 / L rows a block
+template <typename T, int L, int VPL>
+__global__ void __launch_bounds__(256) layernorm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                                                        const float* __restrict__ beta, T* __restrict__ y, int M,
+                                                        int C, float eps) {
+  const int64_t row = (int64_t)blockIdx.x * (256 / L) + threadIdx.x / L;
+  ln_row<T, L, VPL>(x, gamma, beta, y, row, row < M, C, eps);
+}
+
+// L lanes of VPL vectors a row: five vectors a lane where C / VEC <= 160
+// (C = 320, 640, 1280 in bf16: 8, 16 and 32 lanes, every lane full), ten
+// up to 320
+template <typename T>
+static int layernorm_launch(const void* x, const float* gamma, const float* beta, void* y, int M, int C, float eps,
+                            cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (C % VEC || C > 320 * VEC) return (int)cudaErrorInvalidValue;
+  const int nv = C / VEC;
+  const int L = nv <= 20 ? 4 : nv <= 40 ? 8 : nv <= 80 ? 16 : 32;
+  const dim3 grid((M + 256 / L - 1) / (256 / L));
+  const T* xt = (const T*)x;
+  T* yt = (T*)y;
+  if (nv > 160)
+    layernorm_kernel<T, 32, 10><<<grid, 256, 0, s>>>(xt, gamma, beta, yt, M, C, eps);
+  else if (L == 32)
+    layernorm_kernel<T, 32, 5><<<grid, 256, 0, s>>>(xt, gamma, beta, yt, M, C, eps);
+  else if (L == 16)
+    layernorm_kernel<T, 16, 5><<<grid, 256, 0, s>>>(xt, gamma, beta, yt, M, C, eps);
+  else if (L == 8)
+    layernorm_kernel<T, 8, 5><<<grid, 256, 0, s>>>(xt, gamma, beta, yt, M, C, eps);
+  else
+    layernorm_kernel<T, 4, 5><<<grid, 256, 0, s>>>(xt, gamma, beta, yt, M, C, eps);
+  return (int)cudaGetLastError();
 }
 
 // one 64x64 output tile per block, 128 threads
@@ -44,20 +70,12 @@ __global__ void __launch_bounds__(128) gemm_kernel(const T* A, const T* W, int N
 
 using namespace mvdf;
 
-MVDF_API int mvdf_layernorm(const void* x, int x_bf16, const void* gamma, const void* beta, void* y, int y_bf16,
-                            int M, int C, float eps, void* stream) {
-  const int rows_per_block = 8;
-  const dim3 grid((M + rows_per_block - 1) / rows_per_block), block(32 * rows_per_block);
+// x and y (M, C) of one type, 16-byte aligned, C % (16 / sizeof(T)) == 0
+MVDF_API int mvdf_layernorm(const void* x, const void* gamma, const void* beta, void* y, int M, int C, float eps,
+                            int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (C <= 1024)
-    layernorm_kernel<32><<<grid, block, 0, s>>>(x, x_bf16, (const float*)gamma, (const float*)beta, y, y_bf16, M, C,
-                                                eps);
-  else if (C <= 2048)  // the C=1280 sites of the big-C form
-    layernorm_kernel<64><<<grid, block, 0, s>>>(x, x_bf16, (const float*)gamma, (const float*)beta, y, y_bf16, M, C,
-                                                eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return dtype == DT_BF16 ? layernorm_launch<bf16>(x, (const float*)gamma, (const float*)beta, y, M, C, eps, s)
+                          : layernorm_launch<float>(x, (const float*)gamma, (const float*)beta, y, M, C, eps, s);
 }
 
 // act: 0 none, 1 gelu, 2 geglu (Nout = N / 2, N % 64 == 0, rows packed);

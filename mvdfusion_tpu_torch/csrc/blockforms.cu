@@ -111,11 +111,14 @@ __device__ __forceinline__ void gemm_phase(const T* A, const T* W, int N, int K,
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) gemm_tile(A, W, N, K, e, (t / tn) * BM, (t % tn) * BN, smem);
 }
 
-__device__ __forceinline__ void layernorm_phase(const void* x, const float* g, const float* b, void* y, int bf,
-                                                int64_t M, int C, float eps) {
+// K3's LayerNorm row (ln_row), a warp a row, C <= 1024
+template <typename T>
+__device__ __forceinline__ void layernorm_phase(const T* x, const float* g, const float* b, T* y, int64_t M, int C,
+                                                float eps) {
+  constexpr int VPL = 1024 / 32 / (16 / sizeof(T));
   const int warps = blockDim.x >> 5;
   for (int64_t row = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5); row < M; row += (int64_t)gridDim.x * warps)
-    layernorm_row<32>(x, bf, g, b, y, bf, row, C, eps);
+    ln_row<T, 32, VPL>(x, g, b, y, row, true, C, eps);
 }
 
 // DP > 0 (bf16): attention.cuh's tensor-core tile with dh padded to DP;
@@ -124,7 +127,6 @@ template <typename T, int TPQ, int DPT, int DP>
 __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const int bf = sizeof(T) == 2;
   const int B = p.B, N = p.N, C = p.C, cpg = C / GN_GROUPS, M = B * N;
   const T* x = reinterpret_cast<const T*>(p.x);
   T* A = reinterpret_cast<T*>(p.A);
@@ -170,7 +172,7 @@ __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
   grid.sync();
   stamp(p.stamps, phase++);
   // 4. LN1 -> A
-  layernorm_phase(H, p.ln1_w, p.ln1_b, A, bf, M, C, p.ln_eps);
+  layernorm_phase(H, p.ln1_w, p.ln1_b, A, M, C, p.ln_eps);
   grid.sync();
   stamp(p.stamps, phase++);
   // 5. qkv -> big (M, 3C)
@@ -200,7 +202,7 @@ __global__ void __launch_bounds__(128) site_kernel(SiteParams p) {
   grid.sync();
   stamp(p.stamps, phase++);
   // 8. LN3 -> A
-  layernorm_phase(H, p.ln3_w, p.ln3_b, A, bf, M, C, p.ln_eps);
+  layernorm_phase(H, p.ln3_w, p.ln3_b, A, M, C, p.ln_eps);
   grid.sync();
   stamp(p.stamps, phase++);
   // 9. GEGLU -> big (M, inner)

@@ -115,6 +115,25 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
 }
 
+// one 16-byte vector of T (8 bf16 or 4 fp32) to fp32 and back (round to nearest)
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x, f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y), f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
 // sum over the whole block (blockDim.x a multiple of 32, <= 1024); every
 // thread gets the result. `scratch` holds >= 32 floats.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {

@@ -321,7 +321,7 @@ __global__ void __launch_bounds__(128) cv_attention_kernel(const float* __restri
 
 // The DiT's LayerNorm with its adaLN modulation: y = (x - mean) * rstd *
 // (1 + scale) + shift over rows of C fp32 (the residual stream), two-pass
-// fp32 statistics as block.cu's LayerNorm, y in T. Bytes-bound: one warp a
+// fp32 statistics, y in T. Bytes-bound: one warp a
 // row, 16-byte loads (C % 4 == 0, C <= 1024), 8 rows a block.
 template <typename T>
 __global__ void __launch_bounds__(256) cv_layernorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,

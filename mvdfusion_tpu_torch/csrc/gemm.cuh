@@ -189,38 +189,49 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* W, int N,
   __syncthreads();
 }
 
-// y = (x - mean) / sqrt(var + eps) * gamma + beta over one row of
-// C <= 32 PL by one warp, two-pass fp32 statistics; gamma/beta fp32
-// (nullable).
-template <int PL>
-__device__ __forceinline__ void layernorm_row(const void* x, int x_bf16, const float* gamma, const float* beta,
-                                              void* y, int y_bf16, int64_t row, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  float vals[PL];
-  float s = 0.0f;
+// LayerNorm of one row of C <= L * VPL * VEC elements (VEC = 16 / sizeof(T))
+// by a group of L lanes (a power of two up to 32, L consecutive threads):
+// 16-byte loads and stores, fp32 statistics in the reference's form
+// (mvdfusion_tpu/ops/block.py::_ln_t): mean, E[x^2] - mean^2 clamped at 0,
+// then (x - mean) * rstd * gamma + beta, gamma and beta fp32 (nullable).
+// Every lane of the warp calls it (the shuffles take the whole warp); with
+// `valid` false it reads and stores nothing.
+template <typename T, int L, int VPL>
+__device__ __forceinline__ void ln_row(const T* __restrict__ x, const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, T* __restrict__ y, int64_t row, bool valid,
+                                       int C, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & (L - 1);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * C);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * C);
+  float v[VPL][VEC];
+  float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    vals[i] = (c < C) ? load_any(x, row * C + c, x_bf16) : 0.0f;
-    s += vals[i];
+  for (int i = 0; i < VPL; ++i)
+    if (valid && (lane + L * i) * VEC < C) {
+      unpack16(xr[lane + L * i], v[i]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s1 += v[i][j], s2 += v[i][j] * v[i][j];
+    }
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   }
-  const float mean = warp_sum(s) / (float)C;
-  float s2 = 0.0f;
+  const float mean = s1 / (float)C;
+  const float rstd = rsqrtf(fmaxf(s2 / (float)C - mean * mean, 0.0f) + eps);
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    const float d = (c < C) ? vals[i] - mean : 0.0f;
-    s2 += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(s2) / (float)C + eps);
+  for (int i = 0; i < VPL; ++i) {
+    const int c = (lane + L * i) * VEC;
+    if (valid && c < C) {
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) {
-      float v = (vals[i] - mean) * rstd;
-      if (gamma) v *= gamma[c];
-      if (beta) v += beta[c];
-      store_any(y, row * C + c, v, y_bf16);
+      for (int j = 0; j < VEC; ++j) {
+        float o = (v[i][j] - mean) * rstd;
+        if (gamma) o *= gamma[c + j];
+        if (beta) o += beta[c + j];
+        v[i][j] = o;
+      }
+      yr[lane + L * i] = pack16(v[i]);
     }
   }
 }

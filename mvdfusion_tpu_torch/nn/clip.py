@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvdfusion_tpu_torch.nn.layers import Conv2d, LayerNormFp32, Linear, dot_attention
+from mvdfusion_tpu_torch.nn.layers import Conv2d, LayerNormFp32, Linear, dense, dot_attention
 from mvdfusion_tpu_torch.ops.image import bicubic_resize
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -47,7 +47,7 @@ class CLIPAttention(nn.Module):
     def forward(self, x):
         B, N, C = x.shape
         dh = C // self.heads
-        qkv = F.linear(x.to(self.in_proj_weight.dtype), self.in_proj_weight, self.in_proj_bias)
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (a.reshape(B, N, self.heads, dh) for a in qkv.chunk(3, dim=-1))
         return self.out_proj(dot_attention(q, k, v, dh**-0.5).reshape(B, N, C))
 

@@ -32,11 +32,22 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
     return emb
 
 
+def dense(x, weight, bias=None):
+    """x @ weight^T + bias in the weight's dtype. Below fp32 it rounds where
+    the reference's flax Dense(dtype) rounds: the product, then the bias add
+    in the weight's dtype."""
+    x = x.to(weight.dtype)
+    if bias is None or weight.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias.to(weight.dtype)
+
+
 class Linear(nn.Linear):
-    """nn.Linear over the last dim, computing in the weight's dtype."""
+    """nn.Linear over the last dim, computing in the weight's dtype and
+    rounding as flax's Dense (`dense`)."""
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return dense(x, self.weight, self.bias)
 
 
 class Conv1x1(nn.Module):
@@ -52,10 +63,7 @@ class Conv1x1(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x):
-        w = self.weight[:, :, 0, 0]
-        if w.dtype == torch.float32:
-            return F.linear(x.float(), w, self.bias)
-        return F.linear(x.to(w.dtype), w) + self.bias.to(w.dtype)
+        return dense(x, self.weight[:, :, 0, 0], self.bias)
 
 
 class Conv2d(nn.Conv2d):

@@ -11,7 +11,10 @@ pointers and the current CUDA stream and returns ``cudaGetLastError()``;
 
 ``LAUNCHES`` counts, per wrapper, the launches of its kernel; a wrapper adds
 one exactly where it launches and nowhere else. ``GEMM_SHAPES`` breaks the
-GEMM's launches down by route and shape (ops/block.py::gemm).
+GEMM's launches down by route and shape (ops/block.py::gemm), and
+``GN_SHAPES`` K1's by (B, N, C, act) (ops/groupnorm.py::launch_group_norm,
+the UNet's GroupNorms and the sites' own), ``LN_SHAPES`` the sites'
+LayerNorm's by (M, C) (ops/block.py::layernorm).
 """
 
 from __future__ import annotations
@@ -35,15 +38,18 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 
 LAUNCHES: collections.Counter = collections.Counter()
 GEMM_SHAPES: collections.Counter = collections.Counter()
+GN_SHAPES: collections.Counter = collections.Counter()
+LN_SHAPES: collections.Counter = collections.Counter()
 
 # entry point -> argument kinds: p pointer, i int32, l int64, f float32
 _SIGNATURES = {
-    "mvdf_groupnorm": "ppppiiiifiip",
+    "mvdf_groupnorm": "pppp" + "iiii" + "iiiiii" + "f" + "ii" + "p" + "i" + "p",
+    "mvdf_gn_max_clusters": "iiiiip",
     "mvdf_gn_stats": "pppppp" + "iiiii" + "f" + "ii" + "p",
     "mvdf_gn_apply": "ppppiiiiip",
     "mvdf_conv3x3": "pppppppp" + "iiiiiii" + "p",
     "mvdf_attention": "ppppiiiiillllllllfiip",
-    "mvdf_layernorm": "pipppiiifp",
+    "mvdf_layernorm": "pppp" + "ii" + "f" + "i" + "p",
     "mvdf_gemm": "ppppipipiipiiiiiip",
     "mvdf_tma_desc": "piiip",
     "mvdf_gemm_sm90": "ppppipipiipiiiiiip",
@@ -64,6 +70,8 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     LAUNCHES.clear()
     GEMM_SHAPES.clear()
+    GN_SHAPES.clear()
+    LN_SHAPES.clear()
 
 
 def nvcc_path() -> str:
@@ -166,6 +174,17 @@ def tma_desc(t, box_rows: int):
     if rc != 0:
         raise RuntimeError(f"mvdf_tma_desc: CUDA error {rc} ({lib().mvdf_error_string(rc).decode()})")
     return buf
+
+
+def gn_max_clusters(k: int, threads: int, smem: int, resident: bool, dtype_code: int) -> int:
+    """How many of K1's clusters (k CTAs of `threads` threads and `smem`
+    bytes of dynamic shared memory, keeping their rows or not) the current
+    card holds at once (cudaOccupancyMaxActiveClusters)."""
+    n = ctypes.c_int(0)
+    rc = lib().mvdf_gn_max_clusters(k, threads, smem, int(resident), dtype_code, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"mvdf_gn_max_clusters: CUDA error {rc} ({lib().mvdf_error_string(rc).decode()})")
+    return n.value
 
 
 def reads_prepared(t) -> bool:

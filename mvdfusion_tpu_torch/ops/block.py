@@ -134,16 +134,20 @@ def _f32(t):
     return None if t is None else t.float().contiguous()
 
 
-def layernorm(x, weight=None, bias=None, eps: float = _LN_EPS, out_dtype=None):
-    """csrc/block.cu LayerNorm over the last dim of a CUDA (M, C) tensor;
-    fp32 statistics; input fp32 or bf16, output `out_dtype`."""
+def layernorm(x, weight=None, bias=None, eps: float = _LN_EPS):
+    """csrc/block.cu's LayerNorm over the last dim of a CUDA (M, C) tensor in
+    bf16 or fp32, output in x's dtype: 16-byte rows, fp32 statistics in the
+    reference's form (E[x^2] - mean^2 clamped at 0, as _ln_plain). Counts
+    under "layernorm", and by (M, C) in _lib.LN_SHAPES."""
     C = x.shape[-1]
     x = x.contiguous()
-    y = torch.empty(x.shape, dtype=out_dtype or x.dtype, device=x.device)
-    _lib.call(
-        "mvdf_layernorm", x, _lib.is_bf16(x), _f32(weight), _f32(bias),
-        y, _lib.is_bf16(y), x.numel() // C, C, float(eps),
-    )
+    if x.data_ptr() % 16:
+        raise ValueError("the LayerNorm reads 16-byte vectors: x must be 16-byte aligned")
+    y = torch.empty_like(x)
+    M = x.numel() // C
+    _lib.call("mvdf_layernorm", x, _f32(weight), _f32(bias), y, M, C, float(eps), _lib.dtype_code(x.dtype))
+    _lib.LAUNCHES["layernorm"] += 1
+    _lib.LN_SHAPES[(M, C)] += 1
     return y
 
 

@@ -244,6 +244,62 @@ def test_gpu_k4_view_attention_routes_match_plain(cuda, V):
     assert torch.equal(fused, K4.view_attention(h, w.qkv_w[0], w.qkv_b[0], V, heads))
 
 
+# K1's (N, C) at every GroupNorm of a UNet step (nn/unet.py), each at the
+# CFG batch of the flagship (16) or of the eval step (30), and the VAE's
+# 32^2 x 512 maps at the flagship's encode batch of 9
+K1_STEP_SHAPES = [(16, 1024, 320), (30, 1024, 320), (16, 1024, 640), (30, 1024, 960), (30, 256, 320),
+                  (16, 256, 640), (30, 256, 960), (16, 256, 1280), (30, 256, 1920), (16, 64, 640), (30, 64, 1280),
+                  (16, 64, 1920), (30, 64, 2560), (16, 16, 1280), (30, 16, 2560), (9, 1024, 512)]
+# one sample, ragged row counts, 4 channels a group
+K1_EDGE_SHAPES = [(1, 1024, 960), (1, 16, 320), (3, 1000, 320), (2, 77, 640), (5, 3, 2560), (2, 100, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_gpu_k1_step_shapes_match_plain(cuda, dt):
+    """K1 at every shape of the flagship and eval steps, the VAE's 32^2 maps
+    and edge shapes, SiLU at eps 1e-5 (the ResBlocks) and none at 1e-6 (the
+    sites): bf16 within 1 bf16 ulp of max|plain| and a mean of 3e-4 x
+    max|plain|, fp32 within 1e-5 x max|plain| (fp32 sums in another order);
+    a second launch gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for B, N, C in K1_STEP_SHAPES + K1_EDGE_SHAPES:
+        x = _rand(g, cuda, dt, B, N, C, std=3.0) + 1
+        w, b = 1 + _rand(g, cuda, torch.float32, C, std=0.1), _rand(g, cuda, torch.float32, C, std=0.1)
+        for act, eps in (("silu", 1e-5), ("none", 1e-6)):
+            got, want = K1.launch_group_norm(x, w, b, 32, eps, act), K1.group_norm_plain(x, w, b, 32, eps, act)
+            if dt == torch.bfloat16:
+                _close_ulp(got, want, mean_tol=3e-4)
+            else:
+                err, top = (got - want).abs().max().item(), want.abs().max().item()
+                assert err <= 1e-5 * top, f"{(B, N, C)} {act}: max|diff| {err:.3e} > 1e-5 x {top:.3e}"
+            assert torch.equal(got, K1.launch_group_norm(x, w, b, 32, eps, act)), f"{(B, N, C)} {act}: runs differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_gpu_site_layernorm_matches_plain(cuda, dt):
+    """block.cu's LayerNorm at the sites' three widths against _ln_plain (the
+    reference's E[x^2] - mean^2, clamped at 0): rows at the residual stream's
+    scale (mean 4, std 1), rows of N(0, 1), and constant rows (the clamp
+    acts); bf16 within 1 bf16 ulp of max|plain| and a mean of 3e-4 x
+    max|plain|, fp32 within 1e-5 x max|plain|. Also a ragged row count and a
+    narrow C (4 lanes a row); a second launch gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for M, C in ((16384, 320), (4096, 640), (1024, 1280), (999, 320), (33, 64)):
+        x = torch.cat([_rand(g, cuda, torch.float32, M // 2, C) + 4, _rand(g, cuda, torch.float32, M - M // 2 - 3, C),
+                       torch.full((3, C), 2.5, device=cuda)]).to(dt)
+        w, b = 1 + _rand(g, cuda, torch.float32, C, std=0.1), _rand(g, cuda, torch.float32, C, std=0.1)
+        got, want = K3.layernorm(x, w, b), K3._ln_plain(x, w, b)
+        if dt == torch.bfloat16:
+            _close_ulp(got, want, mean_tol=3e-4)
+        else:
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            assert err <= 1e-5 * top, f"{(M, C)}: max|diff| {err:.3e} > 1e-5 x {top:.3e}"
+        assert torch.equal(got[-3:], want[-3:]), f"{(M, C)}: constant rows are not beta"
+        assert torch.equal(got, K3.layernorm(x, w, b))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gpu_k7_groupnorm_tiled_matches_plain(cuda, dt):

@@ -66,9 +66,12 @@ def flax_params(module, table):
 # ----------------------------------------------------------------- K1, K2
 @pytest.mark.parametrize("act", ["none", "silu"])
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
-def test_k1_group_norm_matches_pallas(rng, act, eps):
-    x = (rng.normal(size=(2, 96, 64)) * 3 + 1).astype(np.float32)
-    g, b = (1 + 0.1 * rng.normal(size=64)).astype(np.float32), (0.1 * rng.normal(size=64)).astype(np.float32)
+@pytest.mark.parametrize("N,C", [(96, 64), (16, 320)])
+def test_k1_group_norm_matches_pallas(rng, act, eps, N, C):
+    """Also a 4^2-like map at C=320: cg = 10 channels a group, so a 16-byte
+    bf16 vector of 8 channels straddles two groups on the card."""
+    x = (rng.normal(size=(2, N, C)) * 3 + 1).astype(np.float32)
+    g, b = (1 + 0.1 * rng.normal(size=C)).astype(np.float32), (0.1 * rng.normal(size=C)).astype(np.float32)
     ref = j_group_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 32, eps, act, True)
     close(K1.group_norm_act(T(x), T(g), T(b), 32, eps, act), ref)
 

@@ -242,6 +242,29 @@ def test_conv1x1_bf16_rounds_as_flax_dense(rng, cin, cout):
     assert err.mean() <= 1e-4 * scale, f"mean|diff| {err.mean():.3e}, max|ref| {scale:.3e}"
 
 
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 96)])
+def test_linear_bf16_rounds_as_flax_dense(rng, cin, cout, bias):
+    """Linear in bf16 (the time and label embeddings, the module-path sites'
+    to_out and GEGLU proj, CLIP's projections and MLP) against flax's
+    Dense(dtype=bf16), with and without bias: 1 bf16 ulp of max|ref|, mean
+    <= 1e-4 x max|ref|, as the Conv1x1 test holds."""
+    w = rng.normal(size=(cin, cout)).astype(np.float32) * cin**-0.5
+    b = rng.normal(size=(cout,)).astype(np.float32)
+    x = rng.normal(size=(2, 7, cin)).astype(np.float32)
+    w, b, x = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (w, b, x))
+    params = {"kernel": w, **({"bias": b} if bias else {})}
+    ref = jnn.Dense(cout, use_bias=bias, dtype=jnp.bfloat16).apply({"params": params}, jnp.asarray(x))
+    ref = np.asarray(ref.astype(jnp.float32))
+    sd = {"weight": T(w.T.copy()), **({"bias": T(b)} if bias else {})}
+    m = _load(tl.Linear(cin, cout, bias=bias), sd).to(torch.bfloat16)
+    out = m(T(x).to(torch.bfloat16)).detach().float().numpy()
+    scale = np.abs(ref).max()
+    err = np.abs(out - ref)
+    assert err.max() <= 2.0 ** (np.floor(np.log2(scale)) - 7), f"max|diff| {err.max():.3e}, max|ref| {scale:.3e}"
+    assert err.mean() <= 1e-4 * scale, f"mean|diff| {err.mean():.3e}, max|ref| {scale:.3e}"
+
+
 def test_timm_attention_and_mlp_match(rng):
     (pq, sq), (pp, sp) = _dense(rng, 16, 48), _dense(rng, 16, 16)
     x = rng.normal(size=(3, 8, 16)).astype(np.float32)
