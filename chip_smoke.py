@@ -4,17 +4,25 @@
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
     python3 chip_smoke.py --profile-only STEPS
     python3 chip_smoke.py --k1-sweep
+    python3 chip_smoke.py --k5-sweep
+    python3 chip_smoke.py --site-timers
 
 --profile-only runs the device and build phases, reads K4 and K4b by stage
 (device time per kernel, traced) and against their plain versions in bf16
 ulps, answers one 1-step request to warm up, traces STEPS flagship steps
-and STEPS steps of the evaluation scene (CFG batch 30) on the default route
-and stops (no checks, no JSON): it reads kernel names only, so the same
-script profiles two trees of the port alike. --k1-sweep builds, then times
+and STEPS steps of the evaluation scene (CFG batch 30) on the default route,
+then STEPS flagship steps with the switched site forms on (K5, K6), and
+stops (no checks, no JSON): it reads kernel names only, so the same script
+profiles two trees of the port alike. --k1-sweep builds, then times
 K1 at every shape of GN_STEP (CFG batches 16 and 30) on each cluster size
 and two other thread counts, with the card's count of clusters held at
 once, and logs CTA (0, 0)'s steps from K1's device clock stamps: the data
-ops/groupnorm.py's plan cost model was fitted to.
+ops/groupnorm.py's plan cost model was fitted to. --k5-sweep builds, then
+times K5 by phase (its block 0's clock stamps), and K6's attention with
+one and two warpgroups a block beside the CUDA-core kernel. --site-timers
+builds, then reads the K3, K5 and K6 sites and K6's attention at the
+flagship's shapes with both timers (device_ms and time_ms); it calls only
+entry points that two trees of the port share, so it compares them alike.
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -36,10 +44,14 @@ Phases, each printed with elapsed seconds as it starts and ends:
               beside F.layer_norm. K2 has three rows: CLIP, and
               its tile inside K3 at the 32^2 and 16^2 sites (the rows'
               launches: attention_site_n1024 and _n256, counted by K3's
-              launcher); K5 logs its occupancy. K4's gather and its qkv tile
-              with the view attention have rows of their own (the tile
-              timed beside the standalone route: fp32 qkv GEMM + attention
-              kernel). The site GEMM has one row at
+              launcher). K5 is held bit for bit to a second launch and
+              logged against K3 on the same inputs, by phase beside the
+              standalone site GEMM at each product's shape, with its
+              occupancy; K6's attention kernel has a row of its own (1 bf16
+              ulp, bit-equal repeats) at N = 64, 128 and 256. K4's gather
+              and its qkv tile with the view attention have rows of their
+              own (the tile timed beside the standalone route: fp32 qkv
+              GEMM + attention kernel). The site GEMM has one row at
               each distinct (M, N, K) of the three driven paths in bf16: the
               wgmma kernel (gemm_sm90.cu) against its plain version, timed
               beside block.cu's wmma tile and torch.matmul (cuBLAS)
@@ -245,6 +257,56 @@ def compare_ulp(name, got, want, why: str, mean_tol: float | None = None) -> flo
     return err
 
 
+def bf16_ulp(t):
+    """The bf16 ulp of each element of `t` (that of 2^-126 at zero)."""
+    return (t.abs().clamp_min(2.0**-126).log2().floor() - 7).exp2()
+
+
+def compare_geglu(name, got, want, a, w, bias) -> float:
+    """bf16 GEGLU with `steps` (gemm_plain: out = r(r(val) * r(r(g/2) *
+    r(1 + erf(g/sqrt 2)))), g = r(g), r a bf16 rounding): both sides round
+    the same fp32 sums, which differ by far less than an ulp, so each of
+    those roundings may go the other way once; an element's allowance is
+    what that does through the chain: for a = r(val) and f the gelu factor,
+    ulp(a)|f| + |a| df + ulp(a) df + ulp(out), with df the factor's own
+    (g's ulp through g/2 and the erf, e's and f's ulps). Held to the larger
+    of that and 1 bf16 ulp of max|plain|, and a mean of 1e-4 x max|plain|.
+    Logs the element nearest its allowance and the one farthest from the
+    plain value in ulps of max|plain|, each with its factors."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    v = a.float() @ w.float().t() + bias.float()
+    M, N = v.shape
+    v = v.reshape(M, N // (2 * K3._GEGLU_HALF), 2, K3._GEGLU_HALF)
+    r = lambda t: t.to(torch.bfloat16).float()
+    val, g = r(v[:, :, 0].reshape(M, N // 2)), r(v[:, :, 1].reshape(M, N // 2))
+    h, e = r(g * 0.5), r(1.0 + torch.erf(g * K3._SQRT_HALF))
+    f = r(h * e)
+    du_g = bf16_ulp(g)
+    d_e = 0.7979 * torch.exp(-0.5 * g * g) * du_g + bf16_ulp(e)  # d erf(g/sqrt 2)/dg <= sqrt(2/pi)
+    d_f = 0.5 * du_g * e.abs() + h.abs() * d_e + 0.5 * du_g * d_e + bf16_ulp(f)
+    d_a = bf16_ulp(val)
+    top = want.float().abs().max().item()
+    ulp_top = 2.0 ** (math.floor(math.log2(top)) - 7)
+    allow = (d_a * f.abs() + val.abs() * d_f + d_a * d_f + bf16_ulp(want.float())).clamp_min(ulp_top)
+    diff = (got.float() - want.float()).abs()
+    ratio = diff / allow
+    mean = diff.mean().item()
+    ok = math.isfinite(diff.max().item()) and ratio.max().item() <= 1.0 and mean <= 1e-4 * top
+    for what, i in (("nearest its allowance", int(ratio.argmax())), ("largest |diff|", int(diff.argmax()))):
+        at = lambda t: t.flatten()[i].item()
+        log(f"  {name} [bf16] element {what}: |diff| {at(diff):.3e} = {at(diff) / ulp_top:.2f} ulp of max|plain| "
+            f"{top:.3e}, allowance {at(allow):.3e}; plain {at(want):.4e}, kernel {at(got):.4e}, a = r(val) "
+            f"{at(val):.4e}, g {at(g):.4e}, gelu factor {at(f):.4e}")
+    log(f"  {name} [bf16]: max|diff| / allowance {ratio.max().item():.3f}, {(diff > ulp_top).sum().item()} elements "
+        f"over 1 ulp of max|plain|, mean {mean:.3e} against 1e-4 x max|plain| = {1e-4 * top:.3e} (each rounding "
+        f"of the GEGLU chain may go the other way once) -> {'ok' if ok else 'MISS'}")
+    check(ok, f"{name}: kernel disagrees with its plain version ({ratio.max().item():.3f} of the allowance)")
+    return diff.max().item()
+
+
 def compare_tokens(name, got, want, bound) -> float:
     """Phase-1 tokens, bf16: |kernel - plain| <= 1 bf16 ulp of the larger
     token (each side rounds its fp32 sum once) + `bound`, the fp32 sums'
@@ -252,7 +314,7 @@ def compare_tokens(name, got, want, bound) -> float:
     comes closest with its parts; returns the largest |diff| in bf16 ulps."""
     got, want = got.float(), want.float()
     mag = got.abs().maximum(want.abs())
-    ulp = (mag.clamp_min(2.0**-126).log2().floor() - 7).exp2()
+    ulp = bf16_ulp(mag)
     diff = (got - want).abs()
     ratio = diff / (ulp + bound)
     i = int(ratio.argmax())
@@ -264,6 +326,24 @@ def compare_tokens(name, got, want, bound) -> float:
         f"{(diff > ulp).float().mean().item() * 100:.4f}% of tokens over 1 ulp -> {'ok' if ok else 'MISS'}")
     check(ok, f"{name}: kernel disagrees with its plain version ({worst:.3f} of the allowance)")
     return (diff / ulp).max().item()
+
+
+def site_inputs(rnd, B, N, C, dt, a2_map):
+    """A transformer site's x, attn2 term (a (B, C) row or a (B, N, C) map)
+    and weights, GEGLU inner width 4C, drawn from `rnd`."""
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    inner = 4 * C
+    lin = lambda o, i: rnd(o, i, std=i**-0.5, dt=dt)
+    vec = lambda n, s=0.1: rnd(n, std=s)
+    w = K3.BlockWeights(
+        gn_w=1 + vec(C), gn_b=vec(C), pi_w=lin(C, C), pi_b=vec(C), ln1_w=1 + vec(C), ln1_b=vec(C),
+        qkv_w=lin(3 * C, C), out_w=lin(C, C), out_b=vec(C), ln3_w=1 + vec(C), ln3_b=vec(C),
+        g_w=lin(2 * inner, C), g_b=vec(2 * inner), f_w=lin(C, inner), f_b=vec(C), po_w=lin(C, C), po_b=vec(C),
+    )
+    x = rnd(B, N, C, dt=dt)
+    a2 = rnd(B, N, C, dt=dt) if a2_map else rnd(B, C, dt=dt)
+    return x, a2, w
 
 
 # ---------------------------------------------------------------- phase 3
@@ -325,18 +405,7 @@ def kernel_checks():
     # at the eval path's CFG batch 30 and the flagship's 16 (timed)
     log(" K3 transformer_block")
 
-    def site(B, N, C, dt, a2_map):
-        inner = 4 * C
-        lin = lambda o, i: rnd(o, i, std=i**-0.5, dt=dt)
-        vec = lambda n, s=0.1: rnd(n, std=s)
-        w = K3.BlockWeights(
-            gn_w=1 + vec(C), gn_b=vec(C), pi_w=lin(C, C), pi_b=vec(C), ln1_w=1 + vec(C), ln1_b=vec(C),
-            qkv_w=lin(3 * C, C), out_w=lin(C, C), out_b=vec(C), ln3_w=1 + vec(C), ln3_b=vec(C),
-            g_w=lin(2 * inner, C), g_b=vec(2 * inner), f_w=lin(C, inner), f_b=vec(C), po_w=lin(C, C), po_b=vec(C),
-        )
-        x = rnd(B, N, C, dt=dt)
-        a2 = rnd(B, N, C, dt=dt) if a2_map else rnd(B, C, dt=dt)
-        return x, a2, w
+    site = lambda B, N, C, dt, a2_map: site_inputs(rnd, B, N, C, dt, a2_map)
 
     for dt, (B, N, C, heads, a2_map), rtol in (
         (torch.float32, (2, 128, 64, 4, False), 1e-4),
@@ -366,7 +435,10 @@ def kernel_checks():
     site_flops = lambda B, N, C: 2 * B * N * C * (6 * C + 3 * 4 * C) + 4 * B * N * N * C
 
     # K5 one-kernel site: the 32^2 C=320 sites (attn2 row and map) at the eval
-    # path's CFG batch 30 and the flagship's 16 (timed)
+    # path's CFG batch 30 and the flagship's 16 (timed); in bf16 its products
+    # are wgmma over TMA rings. Its row logs each phase by block 0's clock
+    # beside the standalone site GEMM (gemm_sm90) at that phase's (M, N, K)
+    # and epilogue, and K5 against K3 on the same inputs in the same run.
     log(" K5 transformer_block_single")
     for dt, (B, N, C, heads, a2_map), rtol in (
         (torch.float32, (2, 128, 64, 4, False), 1e-4),
@@ -376,30 +448,75 @@ def kernel_checks():
         (bf, (16, 1024, 320, 8, False), 3e-2),
     ):
         x, a2, w = site(B, N, C, dt, a2_map)
+        got = K3.launch_transformer_block_single(x, a2, w, heads)
         err = compare(f"transformer_block_single B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
-                      K3.launch_transformer_block_single(x, a2, w, heads), K3.transformer_block_plain(x, a2, w, heads),
+                      got, K3.transformer_block_plain(x, a2, w, heads),
                       rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
                       else "fp32 sum order", dt)
+        check(torch.equal(got, K3.launch_transformer_block_single(x, a2, w, heads)),
+              "transformer_block_single: two launches differ")
     wp = K3.prepare_site_weights(w, dt)
-    ms = time_ms(lambda: K3.launch_transformer_block_single(x, a2, wp, heads), ITERS)
-    split_ms = time_ms(lambda: K3.launch_transformer_block(x, a2, wp, heads), ITERS)
+    ms = device_ms(lambda: K3.launch_transformer_block_single(x, a2, wp, heads), ITERS)
+    split_ms = device_ms(lambda: K3.launch_transformer_block(x, a2, wp, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_plain(x, a2, w, heads), ITERS)
     bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
-    K3.launch_transformer_block_single(x, a2, w, heads)
+    compare_ulp(f"transformer_block_single B={B} N={N} C={C} against K3 on the same inputs",
+                K3.launch_transformer_block_single(x, a2, wp, heads), K3.launch_transformer_block(x, a2, wp, heads),
+                "the same products, epilogues and rounding points; fp32 sums in another order", mean_tol=3e-4)
+    K3.launch_transformer_block_single(x, a2, wp, heads)
     phases = K3.site_phase_ms(x, 4 * C)
     blocks, sms = K3.site_grid_blocks(x, 4 * C), torch.cuda.get_device_properties(0).multi_processor_count
     log(f"  transformer_block_single: one launch {ms:.4f} ms, the split form's nine launches {split_ms:.4f} ms "
-        f"at the same shape; by phase (block 0's clock): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+        f"at the same shape (device time); by phase (block 0's clock): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+    for ph in K3.site_gemm_phases(B, N, C, 4 * C):
+        a_, w_ = rnd(ph.M, ph.K, dt=bf), getattr(wp, ph.w)
+        kw = dict(bias=None if ph.bias is None else getattr(wp, ph.bias))
+        if ph.kind == "geglu":
+            kw.update(act=K3.ACT_GEGLU, steps=True)
+        elif ph.kind in ("res1", "res2"):
+            kw.update(res1=rnd(ph.M, ph.N, dt=bf), steps=True)
+            if ph.kind == "res2":
+                kw.update(res2=a2, res2_div=N)
+        alone = device_ms(lambda: K3.gemm(a_, w_, **kw), ITERS)
+        log(f"  transformer_block_single phase {ph.name} ({ph.M}, {ph.N}, {ph.K}): {phases[ph.name]:.4f} ms, the "
+            f"standalone site GEMM {alone:.4f} ms ({phases[ph.name] / alone:.2f}x)")
     log(f"  transformer_block_single: occupancy {blocks} blocks of 128 threads = {blocks / sms:g} an SM over {sms} SMs")
+    log(f"  transformer_block_single: {ms / split_ms:.2f}x K3's time (PERF.md: the target is at most 1x)")
     rows["transformer_block_single"] = dict(
         name="transformer_block_single", route="cuda",
         source="mvdfusion_tpu_torch/csrc/blockforms.cu (site_kernel; gemm.cuh, attention.cuh)",
         replaces="mvdfusion_tpu/ops/block.py:298", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="x (16, 1024, 320) bf16, 8 heads, attn2 row")
 
+    # K6's attention kernel alone: the tensor-core tile at the C=1280 8^2
+    # sites (N=64) and at N=128, the CUDA-core kernel at the 512^2 stretch's
+    # N=256, held to 1 bf16 ulp, a mean of 1e-4 x max|plain| and bit-equal
+    # repeats; timed at the flagship's (16, 64, 1280)
+    log(" K6 attention (big_attention)")
+    for B, N in ((30, 64), (3, 128), (2, 256), (16, 64)):
+        C, heads = 1280, 8
+        ln1, qkv_w = rnd(B, N, C, dt=bf), rnd(3 * C, C, std=C**-0.5, dt=bf)
+        got = K3.launch_big_attention(ln1, qkv_w, heads)
+        attn_err = compare_ulp(f"big attention B={B} N={N} C={C} heads={heads} "
+                               f"({K3.big_attention_route(bf, N, C, heads)})", got,
+                               K3.qkv_attention_plain(ln1, qkv_w, heads),
+                               "q, k, v, the probabilities and the output rounded where the reference rounds",
+                               mean_tol=1e-4)
+        check(torch.equal(got, K3.launch_big_attention(ln1, qkv_w, heads)), "big attention: two launches differ")
+    attn_ms = device_ms(lambda: K3.launch_big_attention(ln1, qkv_w, heads), ITERS)
+    attn_plain_ms = time_ms(lambda: K3.qkv_attention_plain(ln1, qkv_w, heads), ITERS)
+    abms, aby = bound(2 * B * N * C * 3 * C + 4 * B * N * N * C, nbytes(ln1, qkv_w, ln1))
+    log(f"  big_attention: {attn_ms:.4f} ms, {(2 * B * N * C * 3 * C + 4 * B * N * N * C) / attn_ms / 1e9:.1f} "
+        f"TFLOP/s, bound {abms:.4f} ms ({aby})")
+    rows["big_attention"] = dict(
+        name="big_attention", route="cuda", source="mvdfusion_tpu_torch/csrc/blockforms.cu (bigattn_sm90_kernel)",
+        replaces="mvdfusion_tpu/ops/block.py:370", max_abs_err=attn_err, ms=attn_ms, plain_ms=attn_plain_ms,
+        bound_ms=abms, bound_by=aby, library_ms=None, shape="ln1 (16, 64, 1280) bf16, qkv_w (3840, 1280), 8 heads")
+
     # K6 big-C site: the C=1280 8^2 sites at CFG batch 30 (attn2 map) and 16
-    # (timed), and the 512^2 stretch's C=1280 16^2 sites (N=256); the new
-    # attention kernel alone first
+    # (timed), and the 512^2 stretch's C=1280 16^2 sites (N=256); the
+    # attention kernel alone on each site's weights first
     log(" K6 transformer_block_big")
     for dt, (B, N, C, heads, a2_map), rtol in (
         (torch.float32, (2, 64, 128, 4, False), 1e-4),
@@ -410,24 +527,21 @@ def kernel_checks():
     ):
         x, a2, w = site(B, N, C, dt, a2_map)
         ln1 = rnd(B, N, C, dt=dt)
-        attn_err = compare(f"big attention B={B} N={N} C={C} heads={heads}", K3.launch_big_attention(ln1, w.qkv_w, heads),
-                           K3.qkv_attention_plain(ln1, w.qkv_w, heads), rtol,
-                           "q, k, v and the probabilities rounded at the same points, fp32 sums in another order", dt)
+        compare(f"big attention B={B} N={N} C={C} heads={heads}", K3.launch_big_attention(ln1, w.qkv_w, heads),
+                K3.qkv_attention_plain(ln1, w.qkv_w, heads), rtol,
+                "q, k, v and the probabilities rounded at the same points, fp32 sums in another order", dt)
         err = compare(f"transformer_block_big B={B} N={N} C={C} a2={'map' if a2_map else 'row'}",
                       K3.launch_transformer_block_big(x, a2, w, heads), K3.transformer_block_big_plain(x, a2, w, heads),
                       rtol, "bf16 rounding at the same points, fp32 sums in another order" if dt == bf
                       else "fp32 sum order", dt)
     wp = K3.prepare_site_weights(w, dt)
-    ms = time_ms(lambda: K3.launch_transformer_block_big(x, a2, wp, heads), ITERS)
-    attn_ms = time_ms(lambda: K3.launch_big_attention(ln1, w.qkv_w, heads), ITERS)
+    ms = device_ms(lambda: K3.launch_transformer_block_big(x, a2, wp, heads), ITERS)
     plain_ms = time_ms(lambda: K3.transformer_block_big_plain(x, a2, w, heads), ITERS)
     bms, by = bound(site_flops(B, N, C), 2 * nbytes(x) + nbytes(a2) + nbytes(*w))
-    abms, aby = bound(2 * B * N * C * 3 * C + 4 * B * N * N * C, nbytes(ln1, w.qkv_w, ln1))
-    log(f"  transformer_block_big: the attention kernel (projections + attention) {attn_ms:.4f} ms of {ms:.4f} ms, "
-        f"its bound {abms:.4f} ms ({aby}), max|err| {attn_err:.3e}")
+    log(f"  transformer_block_big: the attention kernel (projections + attention) {attn_ms:.4f} ms of {ms:.4f} ms")
     rows["transformer_block_big"] = dict(
         name="transformer_block_big", route="cuda",
-        source="mvdfusion_tpu_torch/csrc/blockforms.cu (bigattn_kernel) + block.cu + groupnorm.cu",
+        source="mvdfusion_tpu_torch/csrc/blockforms.cu (bigattn_sm90_kernel) + gemm_sm90.cu + block.cu + groupnorm.cu",
         replaces="mvdfusion_tpu/ops/block.py:370", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None, shape="x (16, 64, 1280) bf16, 8 heads, attn2 row")
 
@@ -620,6 +734,67 @@ def k1_sweep() -> None:
             + ", ".join(f"{name} {(t[i + 1] - t[i]) / 1e3:.2f}" for i, name in enumerate(K1.K1_PHASES))
             + f"; CTAs start over {(max(starts) - min(starts)) / 1e3:.2f} us, end over "
             f"{(max(ends) - min(ends)) / 1e3:.2f} us, first start to last end {(max(ends) - min(starts)) / 1e3:.2f} us")
+
+
+def k5_sweep() -> None:
+    """K5 at the flagship's 32^2 site (16, 1024, 320) in bf16 by phase (its
+    block 0's clock stamps), then K6's attention at the flagship's and the
+    eval path's CFG batch (16, 30) with one and two warpgroups a block and
+    on the CUDA-core kernel: the data of the choice big_attention_consumers
+    makes (device time, device_ms)."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s, std=1.0, dt=torch.float32: (torch.randn(s, generator=g, device=dev) * std).to(dt)
+    bf = torch.bfloat16
+    B, N, C, heads = 16, 1024, 320, 8
+    x, a2, w = site_inputs(rnd, B, N, C, bf, False)
+    w = K3.prepare_site_weights(w, bf)
+    run = lambda: K3.launch_transformer_block_single(x, a2, w, heads)
+    ms = device_ms(run, ITERS)
+    run()
+    log(f"  K5: {ms:.4f} ms, {K3.site_grid_blocks(x, 4 * C)} blocks; by phase: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in K3.site_phase_ms(x, 4 * C).items()))
+    for B in (16, 30):
+        ln1, qkv_w = rnd(B, 64, 1280, dt=bf), rnd(3 * 1280, 1280, std=1280**-0.5, dt=bf)
+        out = torch.empty_like(ln1)
+        cores = lambda: _lib.call("mvdf_big_attention", ln1, qkv_w, None, out, B, 64, 1280, 8, 160**-0.5, 1, 0)
+        times = {cons: device_ms(lambda: K3.launch_big_attention(ln1, qkv_w, 8, cons), ITERS) for cons in (1, 2)}
+        log(f"  K6 attention B={B} N=64: one warpgroup a block {times[1]:.4f} ms, two {times[2]:.4f} ms, the "
+            f"CUDA-core kernel {device_ms(cores, ITERS):.4f} ms; big_attention_consumers picks "
+            f"{K3.big_attention_consumers(B, 64, 8, torch.cuda.get_device_properties(0).multi_processor_count)}")
+
+
+def site_timers() -> None:
+    """The transformer site's three forms (K3 split, K5 one kernel, K6 big-C)
+    and K6's attention kernel at the flagship's shapes in bf16, each read by
+    both timers: device_ms (the device's work alone) and time_ms (events
+    around back-to-back calls from the host: whichever of the host's launch
+    path and the device is slower). It calls only entry points that older
+    trees of the port (since prepare_site_weights) have too, so the same
+    script times two trees alike."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s, std=1.0, dt=torch.float32: (torch.randn(s, generator=g, device=dev) * std).to(dt)
+    bf = torch.bfloat16
+    x, a2, w = site_inputs(rnd, 16, 1024, 320, bf, False)
+    wp = K3.prepare_site_weights(w, bf)
+    xb, a2b, wb = site_inputs(rnd, 16, 64, 1280, bf, False)
+    wbp, ln1 = K3.prepare_site_weights(wb, bf), rnd(16, 64, 1280, dt=bf)
+    cases = (("K3 site (16, 1024, 320)", lambda: K3.launch_transformer_block(x, a2, wp, 8)),
+             ("K5 site (16, 1024, 320)", lambda: K3.launch_transformer_block_single(x, a2, wp, 8)),
+             ("K6 site (16, 64, 1280)", lambda: K3.launch_transformer_block_big(xb, a2b, wbp, 8)),
+             ("K6 attention (16, 64, 1280)", lambda: K3.launch_big_attention(ln1, wb.qkv_w, 8)))
+    for name, fn in cases:
+        log(f"  site timers {name} bf16: device_ms {device_ms(fn, ITERS):.4f} ms, time_ms {time_ms(fn, ITERS):.4f} ms")
 
 
 def k1_launches_a_call(iters: int = 10) -> None:
@@ -898,7 +1073,8 @@ GEMM_ROWS = [
 def gemm_checks(rnd):
     """The wgmma GEMM against its plain version at every GEMM_ROWS shape
     (1 bf16 ulp of max|plain| and a mean of 1e-4 x max|plain| for bf16
-    outputs, the residual stream's 1e-4 x max(1, max|plain|) for fp32 ones),
+    outputs, GEGLU's rounding chain as compare_geglu allows it, the residual
+    stream's 1e-4 x max(1, max|plain|) for fp32 ones),
     timed beside block.cu's wmma tile on the same operands, the plain version
     and torch.matmul (cuBLAS, the bare product), all in device time
     (device_ms: at the smaller shapes one call's host path outlasts the
@@ -943,7 +1119,9 @@ def gemm_checks(rnd):
         got, want = run("sm90"), run(None, plain=True)
         name = f"gemm_sm90 {M}x{N}x{K}"
         what = f"{epi} epilogue, the {phase} path"
-        if got.dtype == bf:
+        if epi == "geglu":
+            err = compare_geglu(f"{name} ({what})", got, want, a, w, kw["bias"])
+        elif got.dtype == bf:
             err = compare_ulp(f"{name} ({what})", got, want, "both round the fp32 sums where the TPU kernels "
                               "round; only roundings split by the sums' order differ", mean_tol=1e-4)
         else:
@@ -1266,6 +1444,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     want = {
         "transformer_block_single": steps * SITES_PER_LEVEL,
         "transformer_block_big": steps * SITES_PER_LEVEL,
+        "big_attention": steps * SITES_PER_LEVEL,  # K6's attention kernel, one a site
         "transformer_block": steps * SITES_PER_LEVEL,
         "attention_site_n1024": 0,  # the 32^2 sites run K5, whose attention phase is K2's tile
         "attention_site_n256": steps * SITES_PER_LEVEL,
@@ -1611,9 +1790,16 @@ def main() -> int:
                          "route (slice), on the evaluation scene (eval) and with the switched forms on (forms)")
     ap.add_argument("--profile-only", type=int, default=0, metavar="STEPS",
                     help="only build the kernels, read K4 and K4b by stage and against their plain versions, "
-                         "and trace STEPS flagship and STEPS evaluation steps on the default route")
+                         "and trace STEPS flagship and STEPS evaluation steps on the default route, then STEPS "
+                         "flagship steps with the switched site forms on")
     ap.add_argument("--k1-sweep", action="store_true",
                     help="only build the kernels and time K1 at every step shape on each cluster size")
+    ap.add_argument("--k5-sweep", action="store_true",
+                    help="only build the kernels and time K5 by phase, and K6's attention with one and two "
+                         "warpgroups a block")
+    ap.add_argument("--site-timers", action="store_true",
+                    help="only build the kernels and read the K3, K5 and K6 sites and K6's attention with both "
+                         "timers (device_ms, time_ms)")
     args = ap.parse_args()
 
     if not (HERE / "mvdfusion_tpu_torch" / "csrc").is_dir():
@@ -1643,6 +1829,8 @@ def main() -> int:
         info = _lib.build(force=True)
         _lib.lib()
         log(f"  {len(_lib._sources())} nvcc compiles in parallel and one link, {info['seconds']:.2f}s -> {info['path']}")
+        log("  each nvcc ended at: " + ", ".join(f"{k} {v:.1f}s" for k, v in sorted(info.get("sources", {}).items(),
+                                                                                   key=lambda kv: kv[1])))
         for line in info["log"].splitlines():
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log("  ptxas " + line.split("ptxas info    :")[-1].strip())
@@ -1650,6 +1838,16 @@ def main() -> int:
     if args.k1_sweep:
         with Phase("k1 sweep"):
             k1_sweep()
+        return 0
+
+    if args.k5_sweep:
+        with Phase("k5 sweep"):
+            k5_sweep()
+        return 0
+
+    if args.site_timers:
+        with Phase("site timers"):
+            site_timers()
         return 0
 
     if args.profile_only:
@@ -1661,6 +1859,12 @@ def main() -> int:
             profile_steps(model, prepared, args.profile_only)
             profile_steps(model, eval_prepared(model, dev), args.profile_only, what="eval, CFG batch 30",
                           feed_prev_depth=model.cfg.feed_prev_depth)
+            set_forms(True)
+            try:
+                answer(model, flagship_scene(model, dev), 1, SEED + 1, dev)  # the forms' workspaces and weights
+                profile_steps(model, prepared, args.profile_only, what="forms")
+            finally:
+                set_forms(False)
         return 0
 
     with Phase("kernels"):
@@ -1696,7 +1900,7 @@ def main() -> int:
     # request for K5 and K6, the VAE phase for K7 and K8; the GEMM's by shape
     # in the phase its row names
     phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
-                "transformer_block_big": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
+                "transformer_block_big": forms_counts, "big_attention": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
                 "conv3x3": vae_counts}
     by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts}
     for name, r in rows.items():

@@ -52,10 +52,10 @@ def scene_seed(seed: int, index: int) -> int:
 def main(argv=None):
     args = parse_args(argv)
     if args.multihost:
-        raise NotImplementedError("multi-host evaluation is not ported yet (ROADMAP Queue 1 item 14)")
+        raise NotImplementedError("multi-host evaluation is not ported yet (ROADMAP Queue 1: parallelism)")
     if args.scene_batch > 1:
         raise NotImplementedError("--scene-batch > 1 (scenes sharded over several cards) is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+                                  "(ROADMAP Queue 1: parallelism)")
     import torch
 
     from mvdfusion_tpu_torch.core.config import build_dataset, build_model_config, load_yaml
@@ -78,7 +78,7 @@ def main(argv=None):
 
     ckpt = args.ckpt or saver.get("ckpt_path")
     if ckpt and os.path.exists(str(ckpt)):
-        raise NotImplementedError(f"{ckpt}: checkpoint loading is not ported yet (ROADMAP Queue 1 item 10)")
+        raise NotImplementedError(f"{ckpt}: checkpoint loading is not ported yet (ROADMAP Queue 1: checkpoint loading)")
     mcfg = build_model_config(cfg)
     if args.tiny:
         mcfg = mcfg.tiny()

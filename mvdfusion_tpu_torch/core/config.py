@@ -24,7 +24,7 @@ def load_yaml(path: str) -> dict:
 
 # ---------------------------------------------------------------- datasets
 def _objaverse_not_ported(**_):
-    raise NotImplementedError("the Objaverse loader is not ported yet (ROADMAP Queue 1 item 12)")
+    raise NotImplementedError("the Objaverse loader is not ported yet (ROADMAP Queue 1: training data)")
 
 
 def _dataset_registry() -> Dict[str, Callable]:

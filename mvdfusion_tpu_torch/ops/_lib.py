@@ -53,8 +53,8 @@ _SIGNATURES = {
     "mvdf_gemm": "ppppipipiipiiiiiip",
     "mvdf_tma_desc": "piiip",
     "mvdf_gemm_sm90": "ppppipipiipiiiiiip",
-    "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "iiiii" + "ff" + "ip",
-    "mvdf_big_attention": "pppiiiifip",
+    "mvdf_block_single": "ppi" + "p" * 17 + "p" + "ppppp" + "p" + "iiiii" + "ff" + "ip",
+    "mvdf_big_attention": "pppp" + "iiii" + "f" + "ii" + "p",
     "mvdf_qkv_attention_sm90": "ppppiiiiifp",
     "mvdf_cv_gather": "pppppppppipiiiiiiiip",
     "mvdf_cv_attention": "ppiiiifip",
@@ -99,10 +99,12 @@ def _stale() -> bool:
 def build(force: bool = False) -> dict:
     """Compile every csrc/*.cu (one nvcc process each, in parallel) and link
     them into LIB_PATH (if stale). Returns {"seconds", "log", "path",
-    "built"}; the log holds -Xptxas -v's per-kernel registers, shared memory
-    and spills."""
+    "built", "sources"}: "sources" maps each source's name to the seconds
+    after the start at which its nvcc ended (the build waits for the last);
+    the log holds -Xptxas -v's per-kernel registers, shared memory and
+    spills."""
     if not force and not _stale():
-        return {"seconds": 0.0, "log": "", "path": str(LIB_PATH), "built": False}
+        return {"seconds": 0.0, "log": "", "path": str(LIB_PATH), "built": False, "sources": {}}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = nvcc_path(), os.getpid()
     t0 = time.perf_counter()
@@ -111,12 +113,22 @@ def build(force: bool = False) -> dict:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outs, ended = {}, {}
+
+    def wait(src, proc):
+        outs[src] = proc.communicate()[0]
+        ended[src] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(cmd[-1], proc)) for cmd, _, proc in jobs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], []
     for cmd, _, proc in jobs:
-        out = proc.communicate()[0]
-        logs.append(" ".join(cmd) + "\n" + out)
+        logs.append(" ".join(cmd) + "\n" + outs[cmd[-1]])
         if proc.returncode != 0:
-            failed.append(out)
+            failed.append(outs[cmd[-1]])
     tmp = BUILD_DIR / f".libmvdf_kernels.{tag}.so"
     if not failed:
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
@@ -133,7 +145,8 @@ def build(force: bool = False) -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError("nvcc failed:\n" + "\n".join(f[-6000:] for f in failed))
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new, never half
-    return {"seconds": seconds, "log": log, "path": str(LIB_PATH), "built": True}
+    return {"seconds": seconds, "log": log, "path": str(LIB_PATH), "built": True,
+            "sources": {Path(src).name: t for src, t in ended.items()}}
 
 
 def lib():

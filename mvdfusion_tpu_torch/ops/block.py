@@ -12,12 +12,17 @@ picks the form where the reference does:
   GEGLU), and K2 for the self-attention on the packed qkv.
 - one kernel (K5, under MVDF_BLOCK_SINGLE=1 where the site's weights fit the
   reference's budget: the C=320 32^2 sites): _block_kernel. On the card one
-  cooperative launch of csrc/blockforms.cu's site_kernel over the same tiles.
+  cooperative launch of csrc/blockforms.cu's site_kernel; in bf16 its six
+  products are wgmma over TMA rings with the site GEMM's epilogue kinds
+  (`site_gemm_phases`), reading the workspace and the prepared weights
+  through tensor maps (SITE_MAPS).
 - big-C (K6, under MVDF_BLOCK_BIGC=1: the C=1280 sites at 64 <= N <= 256):
   _pi_kernel, _bigattn_stream_kernel, _h2_kernel and _ff_stream_kernel. On
   the card K1, block.cu's LayerNorm, the site GEMM, and csrc/blockforms.cu's
-  bigattn_kernel, which projects each head's q, k and v and attends without
-  writing qkv to device memory.
+  attention kernel (`launch_big_attention`), which projects each head's q,
+  k and v and attends without writing qkv to device memory: on the tensor
+  cores (wgmma, then mma.sync) at the 8^2 sites' shapes, on the CUDA cores
+  at the others (`big_attention_route`).
 The plain versions round where the TPU kernels round in bf16: every product
 once (fp32 sum + fp32 bias), each residual add, the softmax probabilities,
 and GEGLU's factors; the big-C form rounds h2 + FF once (its streamed fp32
@@ -35,6 +40,7 @@ The GEMM and LayerNorm launchers here also serve K4 (ops/crossview.py).
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import NamedTuple
 
@@ -227,14 +233,16 @@ GEMM_TILE_N = 128  # the wgmma kernel's tile width (csrc/gemm_sm90.cu)
 
 
 def _weight_desc(w, bn: int):
-    """W's tensor map for tile width bn, made once and kept on the tensor
-    (a prepared weight lives as long as its site's cache)."""
-    key = (w.data_ptr(), tuple(w.shape), bn)
-    hit = getattr(w, "_mvdf_tma", None)
-    if hit is None or hit[0] != key:
-        hit = (key, _lib.tma_desc(w, bn))
-        w._mvdf_tma = hit
-    return hit[1]
+    """W's tensor map in boxes of bn rows, made once per box height and kept
+    on the tensor (a prepared weight lives as long as its site's cache)."""
+    key = (w.data_ptr(), tuple(w.shape))
+    maps = getattr(w, "_mvdf_tma", None)
+    if maps is None or maps[0] != key:
+        maps = (key, {})
+        w._mvdf_tma = maps
+    if bn not in maps[1]:
+        maps[1][bn] = _lib.tma_desc(w, bn)
+    return maps[1][bn]
 
 
 def gemm(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int = 1, gate=None,
@@ -331,9 +339,9 @@ def _ln_plain(h, w, b, eps=_LN_EPS):
 
 
 def qkv_attention_plain(ln1, qkv_w, heads: int):
-    """Plain version of bigattn_kernel, and the qkv + attention stage of every
-    form: q, k and v projected from ln1 (B, N, C) and rounded, then the site
-    kernels' attention -> (B, N, C)."""
+    """Plain version of K6's attention kernel, and the qkv + attention stage
+    of every form: q, k and v projected from ln1 (B, N, C) and rounded, then
+    the site kernels' attention -> (B, N, C)."""
     B, N, C = ln1.shape
     dh = C // heads
     qkv = _mm(ln1, qkv_w).reshape(B, N, 3, heads, dh)
@@ -415,23 +423,80 @@ _WORKSPACE: dict = {}
 # at the end of each
 SITE_PHASES = ("gn_stats", "gn_apply", "proj_in", "ln1", "qkv", "attention", "out_proj", "ln3", "geglu", "ff",
                "proj_out")
+SITE_GN_ROWS = 32  # rows of one of K5's bf16 GroupNorm tiles (csrc/blockforms.cu)
+SITE_A_BOX, SITE_W_BOX = 64, GEMM_TILE_N  # K5's tile: 64 rows of A against 128 rows of W
+# K5's bf16 tensor maps, in csrc/blockforms.cu::SiteMaps' order: the
+# workspace's A operands, then the prepared weights
+SITE_MAPS = ("A", "H", "big", "pi_w", "qkv_w", "out_w", "g_w", "f_w", "po_w")
+
+
+class SiteGemm(NamedTuple):
+    """One of K5's six products: epilogue(a (M, K) @ w (N, K)^T) -> out, a and
+    out named as K5's workspace names them ("A", "H", "big", "x", "out"),
+    w and bias as PreparedSite names them, `kind` the epilogue's pass 2
+    (csrc/gemm.cuh::epilogue_kind: "bias", "res1", "res2" or "geglu")."""
+
+    name: str
+    a: str
+    w: str
+    M: int
+    N: int
+    K: int
+    bias: str | None
+    res1: str | None
+    res2: str | None
+    kind: str
+    out: str
+
+
+def site_gemm_phases(B: int, N: int, C: int, inner: int) -> tuple:
+    """K5's products in the order its phases run them (site_kernel): the six
+    products of launch_transformer_block, with the same epilogue kinds, so K5
+    rounds where K3 rounds."""
+    M = B * N
+    return (
+        SiteGemm("proj_in", "A", "pi_w", M, C, C, "pi_b", None, None, "bias", "H"),
+        SiteGemm("qkv", "A", "qkv_w", M, 3 * C, C, None, None, None, "bias", "big"),
+        SiteGemm("out_proj", "A", "out_w", M, C, C, "out_b", "H", "a2", "res2", "H"),
+        SiteGemm("geglu", "A", "g_w", M, 2 * inner, C, "g_b", None, None, "geglu", "big"),
+        SiteGemm("ff", "big", "f_w", M, C, inner, "f_b", "H", None, "res1", "H"),
+        SiteGemm("proj_out", "H", "po_w", M, C, C, "po_b", "x", None, "res1", "out"),
+    )
 
 
 def _site_workspace(B: int, N: int, C: int, inner: int, dtype, device):
-    """K5's intermediates, allocated once per shape: GN mean and rstd per
-    (batch, group), two (M, C) buffers, one (M, max(3C, inner)), and the
+    """K5's intermediates, allocated once per shape: the GN statistics (fp32:
+    mean and rstd per (batch, group); bf16: partial sums per (batch, 32-row
+    chunk, group)), two (M, C) buffers, one (M, max(3C, inner)), and the
     phase stamps followed by the launch's number of blocks."""
     key = (B, N, C, inner, dtype, torch.device(device))
     if key not in _WORKSPACE:
         M = B * N
+        chunks = -(-N // SITE_GN_ROWS)
         _WORKSPACE[key] = (
-            torch.empty(B * _GN_GROUPS * 2, dtype=torch.float32, device=device),
+            torch.empty(B * chunks * _GN_GROUPS * 2, dtype=torch.float32, device=device),
             torch.empty(M, C, dtype=dtype, device=device),
             torch.empty(M, C, dtype=dtype, device=device),
             torch.empty(M * max(3 * C, inner), dtype=dtype, device=device),
             torch.zeros(len(SITE_PHASES) + 2, dtype=torch.int64, device=device),
         )
     return _WORKSPACE[key]
+
+
+_WORKSPACE_MAPS: dict = {}
+
+
+def _site_workspace_maps(B: int, N: int, C: int, inner: int, device) -> bytes:
+    """The tensor maps of K5's bf16 workspace operands A, H (M, C) and big
+    (M, inner), in 64-row boxes, made once per workspace (SITE_MAPS' first
+    three)."""
+    key = (B, N, C, inner, torch.device(device))
+    if key not in _WORKSPACE_MAPS:
+        _, A, H, big, _ = _site_workspace(B, N, C, inner, torch.bfloat16, device)
+        M = B * N
+        ops = {"A": A, "H": H, "big": big[: M * inner].view(M, inner)}
+        _WORKSPACE_MAPS[key] = b"".join(bytes(_lib.tma_desc(ops[n], SITE_A_BOX)) for n in SITE_MAPS[:3])
+    return _WORKSPACE_MAPS[key]
 
 
 def site_phase_ms(x_in, inner: int) -> dict:
@@ -452,36 +517,122 @@ def site_grid_blocks(x_in, inner: int) -> int:
 
 def launch_transformer_block_single(x_in, attn2_add, w: BlockWeights, heads: int):
     """K5, the one-kernel form on the card: one cooperative launch of
-    csrc/blockforms.cu's site_kernel (no counting)."""
+    csrc/blockforms.cu's site_kernel (no counting). In bf16 its products
+    read the workspace's and the prepared weights' tensor maps."""
     B, N, C = x_in.shape
     inner = w.f_w.shape[1]
     x, a2, a2_div, w = _operands(x_in, attn2_add, w)
+    maps = None
+    if x.dtype == torch.bfloat16:
+        if C % 64 or inner % 64:
+            raise ValueError(f"K5 in bf16 reads 64-column boxes: C={C}, inner={inner}")
+        wmaps = b"".join(bytes(_weight_desc(getattr(w, n), SITE_W_BOX)) for n in SITE_MAPS[3:])
+        maps = ctypes.create_string_buffer(_site_workspace_maps(B, N, C, inner, x.device) + wmaps)
     out = torch.empty_like(x)
     _lib.call(
         "mvdf_block_single", x, a2, a2_div, w.gn_w, w.gn_b, w.pi_w, w.pi_b, w.ln1_w, w.ln1_b, w.qkv_w, w.out_w,
         w.out_b, w.ln3_w, w.ln3_b, w.g_w, w.g_b, w.f_w, w.f_b, w.po_w, w.po_b, out,
-        *_site_workspace(B, N, C, inner, x.dtype, x.device),
+        *_site_workspace(B, N, C, inner, x.dtype, x.device), maps,
         B, N, C, heads, inner, float(_GN_EPS), float(_LN_EPS), _lib.dtype_code(x.dtype),
     )
     return out
 
 
-def launch_big_attention(ln1, qkv_w, heads: int):
-    """csrc/blockforms.cu's bigattn_kernel: ln1 (B, N, C) and qkv_w (3C, C) in
-    one dtype -> the (B, N, C) attention output."""
+BIG_ATTN_DH = 160  # the head width of the tensor-core K6 tile (csrc/blockforms.cu::bigattn_sm90_kernel)
+_SMS: dict = {}
+
+
+def big_attention_consumers(B: int, N: int, heads: int, sms: int) -> int:
+    """The tensor-core K6 tile's consumer warpgroups a block: two at N = 128
+    (a batch element a block); at N = 64 one (a batch element a block, heads
+    x B blocks) while those blocks fit one wave of the card's `sms` SMs (one
+    block an SM), else two (two batch elements a block, half the blocks):
+    the faster of the two at the flagship's and the eval path's CFG batch
+    (chip_smoke.py --k5-sweep; PERF.md)."""
+    if N == 128:
+        return 2
+    return 1 if heads * B <= sms else 2
+
+
+def big_attention_route(dtype, N: int, C: int, heads: int) -> str:
+    """K6's attention kernel for these operands, by shape: "sm90"
+    (bigattn_sm90_kernel: bf16, dh = 160, N = 64 or 128, the 8^2 sites) or
+    "cores" (bigattn_kernel: fp32, and bf16 at the other shapes, N = 192
+    and 256 from the 512^2 stretch)."""
+    ok = dtype == torch.bfloat16 and C % heads == 0 and C // heads == BIG_ATTN_DH and C % 64 == 0
+    return "sm90" if ok and N in (64, 128) else "cores"
+
+
+def big_attention_plan(B: int, N: int, consumers: int, route: str = "sm90") -> list:
+    """The blocks of one head of K6's attention kernel, in grid order: for
+    each, the (batch, first token row, rows) of each 64-row slice that one
+    consumer warpgroup projects and attends (sm90: 64 x consumers rows a
+    block, N = 64 or 128; rows past B N are dropped), or of each 64-query
+    slab (cores: one block a batch element, its N keys)."""
+    if route == "cores":
+        return [[(b, n0, min(64, N - n0)) for n0 in range(0, N, 64)] for b in range(B)]
+    rows = 64 * consumers
+    if N not in (64, 128) or rows % N:
+        raise ValueError(f"the tensor-core K6 tile takes N = 64 or 128 with whole batch elements: N={N}, "
+                         f"{consumers} warpgroups")
+    plan = []
+    for row0 in range(0, B * N, rows):
+        plan.append([(r // N, r % N, 64) for r in range(row0, min(row0 + rows, B * N), 64)])
+    return plan
+
+
+def big_attention_tiles_plain(ln1, qkv_w, heads: int, consumers: int = 2, route: str | None = None):
+    """The attention kernel's tile order on the CPU: for each head and each
+    block of big_attention_plan, the block's q, k and v products rounded as
+    the tile rounds them, then each slice's queries against its batch
+    element's keys (attention_plain's probs form). Equal to
+    qkv_attention_plain."""
+    B, N, C = ln1.shape
+    dh = C // heads
+    route = route or big_attention_route(ln1.dtype, N, C, heads)
+    out = torch.empty_like(ln1)
+    for h in range(heads):
+        wq, wk, wv = (qkv_w[p * C + h * dh : p * C + (h + 1) * dh] for p in range(3))
+        for block in big_attention_plan(B, N, consumers, route):
+            batches = sorted({b for b, _, _ in block})
+            kv = {b: (_mm(ln1[b], wk), _mm(ln1[b], wv)) for b in batches}
+            for b, n0, rows in block:
+                q = _mm(ln1[b, n0 : n0 + rows], wq)
+                k, v = kv[b]
+                o = attention_plain(q[None, :, None], k[None, :, None], v[None, :, None], dh**-0.5, MODE_PROBS)
+                out[b, n0 : n0 + rows, h * dh : (h + 1) * dh] = o[0, :, 0]
+    return out
+
+
+def launch_big_attention(ln1, qkv_w, heads: int, consumers: int | None = None):
+    """csrc/blockforms.cu's K6 attention: ln1 (B, N, C) and qkv_w (3C, C) in
+    one dtype -> the (B, N, C) attention output; bigattn_sm90_kernel or
+    bigattn_kernel as big_attention_route says (`consumers`: the sm90
+    tile's warpgroups a block, by default big_attention_consumers'). Counts
+    under "big_attention"."""
     B, N, C = ln1.shape
     if qkv_w.dtype != ln1.dtype or tuple(qkv_w.shape) != (3 * C, C):
         raise ValueError(f"qkv weights {tuple(qkv_w.shape)} {qkv_w.dtype} for ln1 {tuple(ln1.shape)} {ln1.dtype}")
     ln1 = ln1.contiguous()
+    qkv_w = qkv_w.contiguous()
     out = torch.empty_like(ln1)
-    _lib.call("mvdf_big_attention", ln1, qkv_w.contiguous(), out, B, N, C, heads, float((C // heads) ** -0.5),
-              _lib.dtype_code(ln1.dtype))
+    desc, cons = None, 0
+    if big_attention_route(ln1.dtype, N, C, heads) == "sm90":
+        if ln1.data_ptr() % 16 or qkv_w.data_ptr() % 16:
+            raise ValueError("the tensor-core K6 tile reads ln1 and qkv_w through TMA: 16-byte aligned")
+        desc = _weight_desc(qkv_w, BIG_ATTN_DH)
+        if ln1.device not in _SMS:
+            _SMS[ln1.device] = torch.cuda.get_device_properties(ln1.device).multi_processor_count
+        cons = consumers or big_attention_consumers(B, N, heads, _SMS[ln1.device])
+    _lib.call("mvdf_big_attention", ln1, qkv_w, desc, out, B, N, C, heads, float((C // heads) ** -0.5),
+              _lib.dtype_code(ln1.dtype), cons)
+    _lib.LAUNCHES["big_attention"] += 1
     return out
 
 
 def launch_transformer_block_big(x_in, attn2_add, w: BlockWeights, heads: int):
     """K6, the big-C form on the card: K1, LayerNorm and GEMMs for
-    _pi_kernel, bigattn_kernel for _bigattn_stream_kernel, the GEMM epilogue
+    _pi_kernel, launch_big_attention for _bigattn_stream_kernel, the GEMM epilogue
     for _h2_kernel, LayerNorm and GEMMs for _ff_stream_kernel (no counting)."""
     B, N, C = x_in.shape
     M = B * N

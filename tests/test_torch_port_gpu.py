@@ -145,6 +145,46 @@ def test_gpu_k6_kernel_matches_plain(cuda, dt, C, heads):
                        K3.transformer_block_big_plain(x, a2, w, heads), dt)
 
 
+@pytest.mark.gpu
+def test_gpu_k5_wgmma_site_against_k3(cuda):
+    """K5 in bf16 at the flagship's 32^2 site (16, 1024, 320): its wgmma
+    phases take the split form's epilogue kinds, so it rounds where K3
+    rounds, and only its GroupNorm sums in another order than K1; a value
+    that rounds the other way there moves through the site's ten chained
+    bf16 roundings. Held to 1 bf16 ulp of max|K3| and a mean of 3e-4 x
+    max|K3| on the same inputs (the bound of K4's chained layers), max|diff|
+    printed in bf16 ulps. Two launches give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, N, C, heads = 16, 1024, 320, 8
+    w = K3.prepare_site_weights(_site_weights(g, cuda, torch.bfloat16, C), torch.bfloat16)
+    x, a2 = _rand(g, cuda, torch.bfloat16, B, N, C), _rand(g, cuda, torch.bfloat16, B, C)
+    got = K3.launch_transformer_block_single(x, a2, w, heads)
+    k3 = K3.launch_transformer_block(x, a2, w, heads)
+    top = k3.float().abs().max().item()
+    print(f"K5 vs K3: {(got.float() - k3.float()).abs().max().item() / 2.0 ** (math.floor(math.log2(top)) - 7):.2f} "
+          "bf16 ulp of max|K3|")
+    _close_ulp(got, k3, mean_tol=3e-4)
+    assert torch.equal(got, K3.launch_transformer_block_single(x, a2, w, heads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,consumers", [(64, 1), (64, 2), (128, None), (192, None), (256, None)])
+def test_gpu_k6_attention_matches_plain(cuda, N, consumers):
+    """K6's attention kernel in bf16 at C=1280, 8 heads, B=3 (an odd batch:
+    the last tensor-core block holds one batch element at N=64 with two
+    warpgroups): the tensor-core tile at N = 64 (one and two warpgroups a
+    block) and 128, the CUDA-core kernel at 192 and 256; 1 bf16 ulp of
+    max|plain| and a mean of 1e-4 x max|plain|; two launches give the same
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, C, heads = 3, 1280, 8
+    ln1 = _rand(g, cuda, torch.bfloat16, B, N, C)
+    qkv_w = _rand(g, cuda, torch.bfloat16, 3 * C, C, std=C**-0.5)
+    got = K3.launch_big_attention(ln1, qkv_w, heads, consumers)
+    _close_ulp(got, K3.qkv_attention_plain(ln1, qkv_w, heads))
+    assert torch.equal(got, K3.launch_big_attention(ln1, qkv_w, heads, consumers))
+
+
 def _k4_inputs(g, dev, dt, V, Hh, hid, L, heads, out_dim, nh=7, N=None):
     """K4's operands; N points (default V * Hh^2) over V maps of Hh^2."""
     mlp, G = 2 * hid, 7 * (1 + 2 * nh)
