@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k1-sweep
     python3 chip_smoke.py --k5-sweep
     python3 chip_smoke.py --site-timers
+    python3 chip_smoke.py --gn-timers
 
 --profile-only runs the device and build phases, reads K4 and K4b by stage
 (device time per kernel, traced) and against their plain versions in bf16
@@ -23,6 +24,10 @@ one and two warpgroups a block beside the CUDA-core kernel. --site-timers
 builds, then reads the K3, K5 and K6 sites and K6's attention at the
 flagship's shapes with both timers (device_ms and time_ms); it calls only
 entry points that two trees of the port share, so it compares them alike.
+--gn-timers builds, then times K7's stats and apply passes and K8's
+gn_fold_affine at the VAE's large maps by device_ms, each against its bound,
+with entry points that older trees share (copy it into an unpacked parent
+tree to compare two trees alike).
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -75,20 +80,24 @@ Phases, each printed with elapsed seconds as it starts and ends:
               for --forms-steps steps; checks shapes, finiteness, the [0, 1]
               range and the launch counts, then holds the latents after one
               DDIM step against the default route's on the same noise
-  7. vae      the same model's VAE with the reference's switched forms
-              (MVDF_GN_TILED=1: the tiled GroupNorm K7 on maps above 2^20
-              elements an image; MVDF_CONV3X3=1: the fused GN + SiLU + conv
-              K8 in the ResBlocks of maps of at least 64^2): the encode of the
-              flagship's 9 images and the decode of 8 latents on the default
-              route, with MVDF_GN_TILED=1 alone and with both, then the eval
-              path's chunked decode of 15 views (chunks of 8 and 7) with both;
-              checks shapes, finiteness, the [0, 1] range and the launch
-              counts, and holds each switched result against the default
-              route's
+  7. vae      the same model's VAE on three routes (VAE_ROUTES): the
+              default (on the card the tiled GroupNorm K7 at every map
+              above 2^20 elements an image, with MVDF_GN_TILED=1 as
+              without), the default with the plain GroupNorm at those maps
+              (the route before the card's repair), and with both of the
+              reference's switched forms on (MVDF_GN_TILED=1 MVDF_CONV3X3=1:
+              the fused GN + SiLU + conv K8 in the ResBlocks of maps of at
+              least 64^2): the encode of the flagship's 9 images, the decode
+              of 8 latents and the eval path's chunked decode of 15 views
+              (chunks of 8 and 7); checks shapes, finiteness, the [0, 1]
+              range and the launch counts, holds the default route against
+              the plain GroupNorm's and the switched forms against the
+              default, then times encode and decode per route
   8. stages   K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
-              host), and K1 (one kernel a call); last, since a profiler
-              session slows the process's later launches on the host
+              host), and K1 (one kernel a call, read from a CUDA graph of
+              its calls); last, since a profiler session slows the
+              process's later launches on the host
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": ...}.
 Comparisons run with TF32 off for matmuls and convolutions.
@@ -97,6 +106,7 @@ Comparisons run with TF32 off for matmuls and convolutions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import math
@@ -116,15 +126,17 @@ REQUESTS = 2  # scenes, one seed each
 # VAE GroupNorms whose (HW, C) slice passes K1's gate (HW*C <= 2^20: the 32^2
 # levels) in one encode and in one decode call at 256^2
 VAE_GN_ENCODE = VAE_GN_DECODE = 11
-# the VAE's launches at 256^2 by route (phase 7; PERF.md, Findings): with
-# MVDF_GN_TILED=1 the GroupNorms of larger maps take K7; with MVDF_CONV3X3=1
-# too, the ResBlocks at 64^2..256^2 (6 in the encoder, 9 in the decoder) take
-# K8 (2 folds, 2 convs each) and the encoder's 64^2 x 256 norm1 (K1) goes with
-# them; the decoder's 256^2 norm_out stays on K7
+# the VAE's launches at 256^2 by route (phase 7; PERF.md, Findings): on the
+# card's default route the GroupNorms of larger maps take K7 (11 in the
+# encoder, 19 in the decoder; ops/groupnorm.py::gn_route), with
+# MVDF_GN_TILED=1 as without; with the plain GroupNorm there they launch
+# nothing; with MVDF_CONV3X3=1 too, the ResBlocks at 64^2..256^2 (6 in the
+# encoder, 9 in the decoder) take K8 (2 folds, 2 convs each) and the
+# encoder's 64^2 x 256 norm1 (K1) goes with them; the decoder's 256^2
+# norm_out stays on K7
 VAE_LAUNCHES = {
-    "default": {"encode": {"groupnorm": 11}, "decode": {"groupnorm": 11}},
-    "gn_tiled": {"encode": {"groupnorm": 11, "groupnorm_tiled": 11},
-                 "decode": {"groupnorm": 11, "groupnorm_tiled": 19}},
+    "default": {"encode": {"groupnorm": 11, "groupnorm_tiled": 11}, "decode": {"groupnorm": 11, "groupnorm_tiled": 19}},
+    "plain_gn": {"encode": {"groupnorm": 11, "groupnorm_tiled": 0}, "decode": {"groupnorm": 11, "groupnorm_tiled": 0}},
     "both": {"encode": {"groupnorm": 10, "gn_fold_affine": 12, "conv3x3": 12},
              "decode": {"groupnorm": 11, "groupnorm_tiled": 1, "gn_fold_affine": 18, "conv3x3": 18}},
 }
@@ -798,10 +810,15 @@ def site_timers() -> None:
 
 
 def k1_launches_a_call(iters: int = 10) -> None:
-    """K1 traced by kernel name over `iters` calls at the flagship's 32^2
-    shape: one kernel a call."""
+    """K1's device work a call at the flagship's 32^2 shape, read from a CUDA
+    graph of `iters` calls: one kernel node a call and no other node (a copy,
+    a memset or a second kernel would each be a node), and the graph's
+    replay bit-equal to an eager call. A graph holds every launch, where a
+    profiler trace may drop a kernel's record (the old trace of this count
+    lost one in 150 sessions on the card)."""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mvdfusion_tpu_torch.ops import groupnorm as K1
 
@@ -809,15 +826,34 @@ def k1_launches_a_call(iters: int = 10) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED)
     x = (torch.randn(16, 1024, 320, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
     w, b = torch.ones(320, device=dev), torch.zeros(320, device=dev)
-    K1.launch_group_norm(x, w, b, 32, 1e-5, "silu")
+    want = K1.launch_group_norm(x, w, b, 32, 1e-5, "silu")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            K1.launch_group_norm(x, w, b, 32, 1e-5, "silu")
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    log(f"  K1: {len(kernels) / iters:g} kernels a call over {iters} calls ({sorted(set(kernels))})")
-    check(len(kernels) == iters, f"K1: {len(kernels)} kernels in {iters} calls, one a call expected")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        ys = [K1.launch_group_norm(x, w, b, 32, 1e-5, "silu") for _ in range(iters)]
+    cuda = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n)) == 0,
+          "K1: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), nodes, ctypes.byref(n)) == 0,
+          "K1: cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0, "K1: cuGraphNodeGetType failed")
+        types.append(t.value)
+    kernels = types.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.instantiate()
+    for y in ys:
+        y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    log(f"  K1: {kernels / iters:g} kernels a call in a graph of {iters} calls (node types {sorted(set(types))}, "
+        f"{len(types)} nodes)")
+    check(kernels == iters and len(types) == iters, f"K1: {len(types)} graph nodes, {kernels} of them kernels, "
+                                                    f"in {iters} calls: one kernel a call expected")
+    check(all(torch.equal(y, want) for y in ys), "K1: the graph's replay differs from an eager call")
 
 
 K4_CALL_LAUNCHES = 21  # gather + 3 layers x (2 LayerNorms, qkv + attention, proj, fc1, fc2) + pool + final GEMM
@@ -930,6 +966,20 @@ def crossview_checks(rnd, dev):
     return rows
 
 
+def gn_pass_times(K1, x, w, b, a, sh) -> None:
+    """Log K7's passes on x by device_ms, each against its bound (bytes: the
+    stats pass reads x once, the apply pass reads it and writes y), and the
+    whole."""
+    st = device_ms(lambda: K1.launch_fold(x, w, b, 32, 1e-6, True), ITERS)
+    ap = device_ms(lambda: K1.launch_apply_affine(x, a, sh), ITERS)
+    k7 = device_ms(lambda: K1.launch_group_norm_tiled(x, w, b, 32, 1e-6), ITERS)
+    b_st, b_ap = nbytes(x) / PEAK_BYTES * 1e3, 2 * nbytes(x) / PEAK_BYTES * 1e3
+    log(f"  K7 {tuple(x.shape)} {x.dtype}: stats pass with the fold {st:.4f} ms "
+        f"(bound {b_st:.4f}, {b_st / st:.1%}), apply pass {ap:.4f} ms (bound {b_ap:.4f}, {b_ap / ap:.1%}), "
+        f"both {k7:.4f} ms (bound {b_ap:.4f}, {b_ap / k7:.1%}; the passes' own floor, two reads and one write, "
+        f"{b_st + b_ap:.4f})")
+
+
 def vae_kernel_checks(rnd):
     """K7 and K8 against their plain versions at the VAE's shapes in bf16 (and
     small ragged shapes in fp32), timed at the decoder's largest maps."""
@@ -946,7 +996,7 @@ def vae_kernel_checks(rnd):
 
     # K7 tiled GroupNorm: a ragged last row tile in fp32; the encoder's
     # 128^2 x 256 maps (B=9), the decoder's 64^2 x 512 and its 256^2 x 128
-    # norm_out (timed, act none as K1's row)
+    # norm_out (timed, act none as K1's row); three launches bit-equal
     log(" K7 groupnorm_tiled")
     err = 0.0
     for dt, shape in ((torch.float32, (2, 3000, 96)), (bf, (9, 16384, 256)), (bf, (8, 4096, 512)),
@@ -959,24 +1009,23 @@ def vae_kernel_checks(rnd):
             want = K1.group_norm_tiled_plain(x, w, b, 32, 1e-6, act)
             err = max(err, compare_ulp(name, got, want, why(dt)) if dt == bf
                       else compare(name, got, want, 1e-4, why(dt), dt))
-    ms = time_ms(lambda: K1.launch_group_norm_tiled(x, w, b, 32, 1e-6), ITERS)
-    stats_ms = time_ms(lambda: K1.launch_fold(x, w, b, 32, 1e-6, True), ITERS)
+            check(all(torch.equal(got, K1.launch_group_norm_tiled(x, w, b, 32, 1e-6, act)) for _ in range(2)),
+                  f"{name}: repeated launches differ")
+    ms = device_ms(lambda: K1.launch_group_norm_tiled(x, w, b, 32, 1e-6), ITERS)
     a, sh = K1.launch_fold(x, w, b, 32, 1e-6, True)
-    apply_ms = time_ms(lambda: K1.launch_apply_affine(x, a, sh), ITERS)
-    plain_ms = time_ms(lambda: K1.group_norm_tiled_plain(x, w, b, 32, 1e-6), ITERS)
-    lib_ms = time_ms(lambda: F.group_norm(x.transpose(1, 2), 32, w.to(bf), b.to(bf), 1e-6), ITERS)
+    plain_ms = device_ms(lambda: K1.group_norm_tiled_plain(x, w, b, 32, 1e-6), ITERS)
+    lib_ms = device_ms(lambda: F.group_norm(x.transpose(1, 2), 32, w.to(bf), b.to(bf), 1e-6), ITERS)
     bms, by = bound(10 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
-    log(f"  groupnorm_tiled: stats pass with the fold {stats_ms:.4f} ms, apply pass {apply_ms:.4f} ms, of {ms:.4f} ms; "
-        f"the two passes' own floor (two reads and one write of x) {3 * nbytes(x) / PEAK_BYTES * 1e3:.4f} ms")
+    gn_pass_times(K1, x, w, b, a, sh)
     rows["groupnorm_tiled"] = dict(
         name="groupnorm_tiled", route="cuda",
-        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_partial_kernel, gn_fold_kernel, "
-               "gn_apply_kernel)",
+        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_kernel with its fold, gn_apply_kernel)",
         replaces="mvdfusion_tpu/ops/groupnorm.py:104", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=lib_ms, shape="x (8, 65536, 128) bf16, 32 groups, eps 1e-6 (the decoder's norm_out)")
 
     # K8 statistics: the eval chunk's 128^2 x 512 (B=7) and the decoder's
-    # 256^2 x 256 (timed); the fold's outputs are fp32 on both sides
+    # 256^2 x 256 (timed); the fold's outputs are fp32 on both sides; the
+    # yardstick is the (B, G) moments alone, torch.var_mean of fp32 x
     log(" K8 gn_fold_affine")
     err = 0.0
     for dt, shape in ((torch.float32, (2, 3000, 96)), (bf, (7, 16384, 512)), (bf, (8, 65536, 256))):
@@ -985,14 +1034,24 @@ def vae_kernel_checks(rnd):
         (ka, kb), (pa, pb) = K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), K8.gn_fold_affine_plain(x, w, b, 32, 1e-6)
         err = max(err, compare(f"gn_fold_affine {shape} a", ka, pa, 1e-4, "fp32 sums in another order", dt),
                   compare(f"gn_fold_affine {shape} b", kb, pb, 1e-4, "fp32 sums in another order", dt))
-    ms = time_ms(lambda: K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), ITERS)
-    plain_ms = time_ms(lambda: K8.gn_fold_affine_plain(x, w, b, 32, 1e-6), ITERS)
+        again = [K8.launch_gn_fold_affine(x, w, b, 32, 1e-6) for _ in range(2)]
+        check(all(torch.equal(u, ka) and torch.equal(v, kb) for u, v in again), f"gn_fold_affine {shape}: "
+              "repeated launches differ")
+    ms = device_ms(lambda: K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), ITERS)
+    plain_ms = device_ms(lambda: K8.gn_fold_affine_plain(x, w, b, 32, 1e-6), ITERS)
+    B, N, C = x.shape
+    xg = x.float().view(B, N, 32, C // 32)
+    lib_ms = device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), ITERS)
     bms, by = bound(3 * x.numel(), nbytes(x, w, b, ka, kb))
+    log(f"  gn_fold_affine {tuple(x.shape)}: {ms:.4f} ms, bound {bms:.4f} ms ({bms / ms:.1%}), "
+        f"{nbytes(x) / ms / 1e9:.2f} TB/s; moments only (torch.var_mean over (B, G) of fp32 x, a yardstick, "
+        f"not the same function) {lib_ms:.4f} ms")
     rows["gn_fold_affine"] = dict(
         name="gn_fold_affine", route="cuda",
-        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_partial_kernel, gn_fold_kernel)",
+        source="mvdfusion_tpu_torch/csrc/groupnorm.cu (gn_stats_kernel with its fold)",
         replaces="mvdfusion_tpu/ops/conv3x3.py:62", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, shape="x (8, 65536, 256) bf16, 32 groups")
+        bound_by=by, library_ms=lib_ms, library="torch.var_mean of fp32 x over (B, G): moments only",
+        shape="x (8, 65536, 256) bf16, 32 groups")
 
     # K8 conv: ragged tiles in fp32 (TX 32 over 20 x 40; TX 64 over W = 136,
     # odd H, Cout 8), the eval chunk's 64^2 x 512 with a residual, the
@@ -1477,7 +1536,10 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
 
 # ---------------------------------------------------------------- phase 7
 VAE_SWITCHES = ("MVDF_GN_TILED", "MVDF_CONV3X3")
-VAE_ROUTES = {"default": (False, False), "gn_tiled": (True, False), "both": (True, True)}
+# the vae phase's routes and their switches; "plain_gn" is the default route
+# with the plain GroupNorm at the large maps (vae_route). MVDF_GN_TILED=1
+# alone has no route here: on the card it takes the default route's path
+VAE_ROUTES = {"default": (False, False), "plain_gn": (False, False), "both": (True, True)}
 
 
 def set_vae_forms(gn_tiled: bool, conv: bool) -> None:
@@ -1493,12 +1555,31 @@ def set_vae_forms(gn_tiled: bool, conv: bool) -> None:
             os.environ.pop(var, None)
 
 
+@contextlib.contextmanager
+def vae_route(route: str):
+    """Run the VAE on `route` of VAE_ROUTES: its switches set, and for
+    "plain_gn" GroupNorm32 asking gn_route as for a CPU tensor (the plain
+    GroupNorm at the large maps, patched here alone); all undone after."""
+    import mvdfusion_tpu_torch.nn.layers as layers
+
+    real_route = layers.gn_route
+    set_vae_forms(*VAE_ROUTES[route])
+    if route == "plain_gn":
+        layers.gn_route = lambda shape, groups, device_type, gated=True: real_route(shape, groups, "cpu", gated)
+    try:
+        yield
+    finally:
+        layers.gn_route = real_route
+        set_vae_forms(False, False)
+
+
 def run_vae(card: str, device: str = "cuda", cfg=None, model=None):
     """The VAE on each route: encode of the flagship's 9 images, decode of 8
-    latents, and with both forms on the eval path's chunked decode of 15
-    views; every switched result against the default route's on the same
-    inputs. Returns the launches of the whole phase. `device`/`cfg` let it be
-    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+    latents and the eval path's chunked decode of 15 views; the default
+    route against the plain GroupNorm's and the switched forms against the
+    default route, on the same inputs. Returns the launches of the whole
+    phase. `device`/`cfg` let it be rehearsed on the CPU at the tiny config
+    (launch counts are then 0)."""
     import collections
 
     import torch
@@ -1528,15 +1609,11 @@ def run_vae(card: str, device: str = "cuda", cfg=None, model=None):
         counts[key] = dict(_lib.LAUNCHES)
         total.update(_lib.LAUNCHES)
 
-    try:
-        for route, switches in VAE_ROUTES.items():
-            set_vae_forms(*switches)
+    for route in VAE_ROUTES:
+        with vae_route(route):
             run((route, "encode"), model.encode_images, images)
             run((route, "decode"), model.decode_latents, z)
-            if route != "gn_tiled":
-                run((route, "decode_15"), model.decode_latents_chunked, z15)
-    finally:
-        set_vae_forms(False, False)
+            run((route, "decode_15"), model.decode_latents_chunked, z15)
     for (route, what), t in secs.items():
         log(f"  vae {route}: {what} {t:.4f}s, launches {counts[(route, what)]}")
     for key, o in out.items():
@@ -1547,11 +1624,15 @@ def run_vae(card: str, device: str = "cuda", cfg=None, model=None):
         if key[1] != "encode":
             check(bool(o.min() >= 0 and o.max() <= 1), f"{key}: images outside [0, 1]")
     gaps = {}
-    for key, o in out.items():
-        if key[0] != "default":
-            gaps[key] = compare(f"vae {key[1]}, {key[0]} vs the default route", o, out[("default", key[1])], 3e-2,
-                                "bf16 rounding at other points: K7's folded affine, K8's single rounding after "
-                                "conv + bias + residual", cfg.dtype)
+    for (route, what), o in out.items():
+        if route == "plain_gn":
+            gaps[route, what] = compare(f"vae {what}, the default route vs the plain GroupNorm's",
+                                        out[("default", what)], o, 3e-2, "K7's fp32 statistics summed in another "
+                                        "order and its folded affine; bf16 activations", cfg.dtype)
+        elif route != "default":
+            gaps[route, what] = compare(f"vae {what}, {route} vs the default route", o, out[("default", what)], 3e-2,
+                                        "bf16 rounding at other points: K8's single rounding after conv + bias + "
+                                        "residual", cfg.dtype)
     if dev.type != "cuda":
         return {}
     chunks = -(-EVAL_TARGETS // 8)  # decode_latents_chunked's chunks of 8
@@ -1560,7 +1641,7 @@ def run_vae(card: str, device: str = "cuda", cfg=None, model=None):
         want = {k: per_decode.get(k, 0) * (chunks if what == "decode_15" else 1) for k in VAE_KERNELS}
         got = {k: launched.get(k, 0) for k in VAE_KERNELS}
         check(got == want, f"vae {route} {what}: launches {got}, the path implies {want}")
-    log(f"  vae: largest gap to the default route {max(gaps.values()):.3e}, on {card}")
+    log(f"  vae: largest gap between routes {max(gaps.values()):.3e}, on {card}")
     vae_route_times(model, images, z, card)
     return dict(total)
 
@@ -1574,9 +1655,8 @@ def vae_route_times(model, images, z, card: str) -> None:
 
     import torch
 
-    try:
-        for route, switches in VAE_ROUTES.items():
-            set_vae_forms(*switches)
+    for route in VAE_ROUTES:
+        with vae_route(route):
             for what, fn, arg in (("encode", model.encode_images, images), ("decode", model.decode_latents, z)):
                 ts = []
                 with torch.no_grad():
@@ -1589,8 +1669,30 @@ def vae_route_times(model, images, z, card: str) -> None:
                         ts.append((time.perf_counter() - t0) * 1e3)
                 log(f"  vae {route} {what}: median {statistics.median(ts):.4f} ms, min {min(ts):.4f}, "
                     f"max {max(ts):.4f} over {VAE_ITERS} calls after one warm-up, on {card}")
-    finally:
-        set_vae_forms(False, False)
+
+
+def gn_timers() -> None:
+    """K7's passes and K8's statistics pass at the VAE's large maps in bf16,
+    by device_ms: the stats pass, the apply pass, both, and gn_fold_affine,
+    each against its bound. It calls only entry points that older trees of
+    the port have too (launch_fold, launch_apply_affine,
+    launch_group_norm_tiled, launch_gn_fold_affine), so copy it into an
+    unpacked parent tree to compare two trees alike."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import conv3x3 as K8
+    from mvdfusion_tpu_torch.ops import groupnorm as K1
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for B, N, C in ((8, 65536, 128), (8, 65536, 256), (9, 16384, 256), (8, 4096, 512), (7, 16384, 512)):
+        x = (torch.randn(B, N, C, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+        b = 0.1 * torch.randn(C, generator=g, device=dev)
+        gn_pass_times(K1, x, w, b, *K1.launch_fold(x, w, b, 32, 1e-6, True))
+        fold = device_ms(lambda: K8.launch_gn_fold_affine(x, w, b, 32, 1e-6), ITERS)
+        bms = nbytes(x) / PEAK_BYTES * 1e3
+        log(f"  gn_fold_affine {(B, N, C)}: {fold:.4f} ms, bound {bms:.4f} ({bms / fold:.1%})")
 
 
 def _host_syncs(events) -> tuple:
@@ -1797,6 +1899,9 @@ def main() -> int:
     ap.add_argument("--k5-sweep", action="store_true",
                     help="only build the kernels and time K5 by phase, and K6's attention with one and two "
                          "warpgroups a block")
+    ap.add_argument("--gn-timers", action="store_true",
+                    help="only build the kernels and time K7's passes and K8's statistics pass at the VAE's "
+                         "large maps (device_ms)")
     ap.add_argument("--site-timers", action="store_true",
                     help="only build the kernels and read the K3, K5 and K6 sites and K6's attention with both "
                          "timers (device_ms, time_ms)")
@@ -1843,6 +1948,11 @@ def main() -> int:
     if args.k5_sweep:
         with Phase("k5 sweep"):
             k5_sweep()
+        return 0
+
+    if args.gn_timers:
+        with Phase("gn timers"):
+            gn_timers()
         return 0
 
     if args.site_timers:

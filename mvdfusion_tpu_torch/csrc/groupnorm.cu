@@ -22,19 +22,23 @@
 // for Mosaic's lane layout and are gone.
 //
 // K7 replaces the reference's tiled form for larger maps, _gn_tiled_impl:
-// _gn_stats_kernel and _gn_apply_kernel. Bound by bytes as K1 (two reads and
-// one write of x, a few flops per element). The TPU kernel carries its
-// per-channel sums across sequential grid steps; here the row tiles run in
-// parallel blocks, each writes its partial sums, and a second small kernel
-// adds the partials of a (batch, channel) in tile order, so the sums are the
-// same on every run (no float atomics). That kernel also does the (B, G)
-// fold, which the reference computes in XLA between its two kernels, so the
-// stats pass is two launches and no host work. The apply pass reads 16 bytes
-// a thread where C allows. The stats pass also serves conv3x3's
-// gn_fold_affine, with the variance unclamped as there.
+// _gn_stats_kernel and _gn_apply_kernel. Bound by bytes (the stats pass one
+// read of x at ~3 flops an element, the apply pass one read and one write).
+// The TPU kernel carries its per-channel sums across sequential grid steps;
+// here the row tiles of a sample run in parallel CTAs, one wave of them on
+// the card (plan_gn_tiled). A thread owns one 16-byte channel vector and
+// strides over rows with 4 independent 16-byte loads in flight, so the card
+// keeps ~64 KB an SM in flight and x is read once as contiguous spans. Each
+// CTA writes its tile's partial sums; the CTA that completes a sample (an
+// integer counter, no float atomics) adds them in tile order and folds the
+// (B, G) moments into a per-(batch, channel) affine, which the reference
+// computes in XLA between its kernels: the stats pass is one launch and no
+// host work, and gives the same bits on every run. The apply pass holds its
+// vector's affine in registers, indexes by (sample, row, vector), with no
+// division per element, and walks each tile back from its end, whose rows
+// the stats pass read last and L2 may still hold. The stats pass also
+// serves conv3x3's gn_fold_affine, with the variance unclamped as there.
 #include <cooperative_groups.h>
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -339,121 +343,233 @@ static int gn_max_clusters(int k, int threads, int smem, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<T, RESIDENT>, &cfg);
 }
 
-// K7 pass 1: per-channel fp32 sums over the row tile blockIdx.x of batch
-// element blockIdx.y: 64 channels x 4 row lanes a step, the row lanes added in
-// a fixed order. part[b][tile] = [sum; sum of squares] (2, C).
-template <typename T>
-__global__ void __launch_bounds__(256) gn_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part,
-                                                               int N, int C, int rows) {
-  __shared__ float s1s[4][64], s2s[4][64];
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int lc = threadIdx.x & 63, lr = threadIdx.x >> 6;
-  const int r0 = tile * rows, r1 = min(N, r0 + rows);
-  const T* xb = x + (int64_t)b * N * C;
-  float* pb = part + ((int64_t)b * gridDim.x + tile) * 2 * C;
-  for (int c0 = 0; c0 < C; c0 += 64) {
-    const int c = c0 + lc;
-    float s1 = 0.0f, s2 = 0.0f;
-    if (c < C) {
-#pragma unroll 4
-      for (int r = r0 + lr; r < r1; r += 4) {
-        const float v = to_f(xb[(int64_t)r * C + c]);
-        s1 += v;
-        s2 += v * v;
-      }
-    }
-    s1s[lr][lc] = s1;
-    s2s[lr][lc] = s2;
-    __syncthreads();
-    if (lr == 0 && c < C) {
-      pb[c] = ((s1s[0][lc] + s1s[1][lc]) + s1s[2][lc]) + s1s[3][lc];
-      pb[C + c] = ((s2s[0][lc] + s2s[1][lc]) + s2s[2][lc]) + s2s[3][lc];
-    }
-    __syncthreads();
-  }
-}
+// K7's CTAs: GNT_THREADS threads; both passes' launch bounds keep
+// GNT_BLOCKS of them an SM resident (the registers capped so that they fit;
+// ops/groupnorm.py::plan_gn_tiled sizes one wave of row tiles from them),
+// with GNT_UNROLL independent 16-byte loads in flight a thread: 4 x 256 x
+// 4 x 16 B = 64 KB an SM (8 loads were no faster; 8 CTAs an SM spilled)
+constexpr int GNT_THREADS = 256, GNT_BLOCKS = 4, GNT_UNROLL = 4;
 
-// K7 pass 1b: the fold. One block per batch element sums part[b][tile] over
-// the tiles in order, then each channel's group (its C/G channels in order),
-// and writes the folded affine, two contiguous (B, C) arrays: a = rstd * gamma,
-// sh = beta - mu * a, rstd = rsqrt(E[x^2] - mu^2 + eps), the variance clamped
-// at 0 where `clamp` (the tiled GroupNorm) and not for conv3x3's fold.
-__global__ void __launch_bounds__(256) gn_fold_kernel(const float* __restrict__ part,
-                                                      const float* __restrict__ gamma,
-                                                      const float* __restrict__ beta, float* __restrict__ a_out,
-                                                      float* __restrict__ sh_out, int tiles, int N, int C, int G, float eps, int clamp) {
-  extern __shared__ float sums[];  // [sum; sum of squares] (2, C)
-  const int b = blockIdx.x;
-  const float* pb = part + (int64_t)b * tiles * 2 * C;
-  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int t = 0; t < tiles; ++t) s += pb[(int64_t)t * 2 * C + i];
-    sums[i] = s;
-  }
-  __syncthreads();
-  const int cg = C / G;
-  const float cnt = (float)N * (float)cg;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int c0 = (c / cg) * cg;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = 0; k < cg; ++k) {
-      s1 += sums[c0 + k];
-      s2 += sums[C + c0 + k];
-    }
-    const float mu = s1 / cnt;
-    float var = s2 / cnt - mu * mu;
-    if (clamp) var = fmaxf(var, 0.0f);
-    const float a = rsqrtf(var + eps) * gamma[c];
-    a_out[(int64_t)b * C + c] = a;
-    sh_out[(int64_t)b * C + c] = beta[c] - mu * a;
-  }
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
+// K7's launch parameters (ops/groupnorm.py::plan_gn_tiled gives rows and tiles)
+struct GNTParams {
+  const void* x;
+  float* part;      // (B, tiles, 2, C): each tile's [sum; sum of squares]
+  unsigned* count;  // (B,): tiles of a sample done; wraps to 0 at its fold
+  const float* gamma;
+  const float* beta;
+  float* a;  // (B, C): rstd * gamma
+  float* sh;  // (B, C): beta - mu * a
+  int N, C, G;
+  int rows, tiles;  // rows a tile, tiles a sample
+  float eps;
+  int clamp;
 };
 
-// K7 pass 2: y = x*a + b (+SiLU), a and b (B, C) fp32; VEC elements a thread
-// (C % VEC == 0, so a pack never leaves its row).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(256) gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                                                       const float* __restrict__ bsh, T* __restrict__ y,
-                                                       int64_t NC, int C, int64_t packs, int silu) {
-  for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < packs;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = p * VEC;
-    const int64_t bc = (e / NC) * C + (int)(e % C);
-    const Pack<T, VEC> in = reinterpret_cast<const Pack<T, VEC>*>(x)[p];
-    Pack<T, VEC> out;
+// the thread's place in its CTA: channel vector cv (VEC channels at a fixed
+// column), row lane `lane` of P = GNT_THREADS / CV; consecutive threads
+// read consecutive 16-byte vectors, so a CTA's step reads one contiguous
+// span of its tile
+template <typename T>
+struct GNTThread {
+  static constexpr int VEC = 16 / sizeof(T);
+  int CV, P, cv, lane, r0, nr;
+  __device__ GNTThread(int N, int C, int rows) {
+    CV = C / VEC;
+    P = GNT_THREADS / CV;
+    cv = threadIdx.x % CV;
+    lane = threadIdx.x / CV;
+    r0 = blockIdx.x * rows;
+    nr = min(N - r0, rows);
+  }
+};
+
+template <int VEC>
+__device__ __forceinline__ void gnt_add(const uint4& v, float (&s1)[VEC], float (&s2)[VEC]) {
+  float f[VEC];
+  unpack16(v, f);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      float v = to_f(in.v[k]) * a[bc + k] + bsh[bc + k];
-      if (silu) v = v / (1.0f + expf(-v));
-      out.v[k] = from_f<T>(v);
+  for (int j = 0; j < VEC; ++j) s1[j] += f[j], s2[j] += f[j] * f[j];
+}
+
+// K7 pass 1 (and K8's gn_fold_affine): row tile blockIdx.x of sample
+// blockIdx.y. Each thread sums its channel vector over rows lane, lane + P,
+// ... in order (fp32), the CTA adds its P row lanes in order into the tile's
+// partials, part[b][tile]. The CTA that finishes a sample's last tile (an
+// atomicInc on count[b] that wraps it back to 0 for the next launch) folds:
+// the partials in tile order, each group's channels in order, then a =
+// rstd * gamma and sh = beta - mu * a with rstd = rsqrt(E[x^2] - mu^2 +
+// eps), the variance clamped at 0 where `clamp` (the tiled GroupNorm; not
+// conv3x3's fold). Same bits on every launch, no float atomics.
+template <typename T>
+__global__ void __launch_bounds__(GNT_THREADS, GNT_BLOCKS) gn_stats_kernel(const GNTParams p) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ __align__(16) float red[2 * GNT_THREADS * VEC];  // [moment][lane][C]; then the fold's (2, C)
+  __shared__ bool last;
+  // the apply pass, launched behind this one, may start as CTAs retire
+  asm volatile("griddepcontrol.launch_dependents;\n");
+  const GNTThread<T> t(p.N, p.C, p.rows);
+  const int C = p.C, b = blockIdx.y;
+  if (t.lane < t.P) {
+    float s1[VEC], s2[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) s1[j] = s2[j] = 0.0f;
+    const uint4* xv = reinterpret_cast<const uint4*>(static_cast<const T*>(p.x) + ((int64_t)b * p.N + t.r0) * C) + t.cv;
+    const int P = t.P, nr = t.nr;
+    int r = t.lane;
+    for (; r + (GNT_UNROLL - 1) * P < nr; r += GNT_UNROLL * P) {
+      uint4 v[GNT_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GNT_UNROLL; ++u) v[u] = __ldg(xv + (int64_t)(r + u * P) * t.CV);
+#pragma unroll
+      for (int u = 0; u < GNT_UNROLL; ++u) gnt_add<VEC>(v[u], s1, s2);
     }
-    reinterpret_cast<Pack<T, VEC>*>(y)[p] = out;
+    for (; r < nr; r += P) gnt_add<VEC>(__ldg(xv + (int64_t)r * t.CV), s1, s2);
+    float4* q1 = reinterpret_cast<float4*>(red + t.lane * C + t.cv * VEC);
+    float4* q2 = reinterpret_cast<float4*>(red + (P + t.lane) * C + t.cv * VEC);
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      q1[j / 4] = make_float4(s1[j], s1[j + 1], s1[j + 2], s1[j + 3]);
+      q2[j / 4] = make_float4(s2[j], s2[j + 1], s2[j + 2], s2[j + 3]);
+    }
+  }
+  __syncthreads();
+  float* pt = p.part + ((int64_t)b * p.tiles + blockIdx.x) * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += GNT_THREADS) {
+    const int m = i >= C;
+    const float* q = red + m * t.P * C + (i - m * C);
+    float s = q[0];
+    for (int l = 1; l < t.P; ++l) s += q[l * C];
+    pt[i] = s;
+  }
+  __threadfence();  // this CTA's partials reach the device before its count does
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(p.count + b, p.tiles - 1) == (unsigned)(p.tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // four consecutive sums a thread, one 16-byte load a tile, read from L2
+  // (other SMs wrote them), 8 tiles' loads in flight
+  const float* pb = p.part + (int64_t)b * p.tiles * 2 * C;
+  for (int i = 4 * threadIdx.x; i < 2 * C; i += 4 * GNT_THREADS) {
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+    for (int k = 0; k < p.tiles; ++k) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(pb + (int64_t)k * 2 * C + i));
+      s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(red + i) = s;
+  }
+  __syncthreads();
+  const int cg = C / p.G;
+  const float cnt = (float)p.N * (float)cg;
+  for (int c = threadIdx.x; c < C; c += GNT_THREADS) {
+    const int c0 = c - c % cg;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int k = 0; k < cg; ++k) s1 += red[c0 + k], s2 += red[C + c0 + k];
+    const float mu = s1 / cnt;
+    float var = s2 / cnt - mu * mu;
+    if (p.clamp) var = fmaxf(var, 0.0f);
+    const float a = rsqrtf(var + p.eps) * p.gamma[c];
+    p.a[(int64_t)b * C + c] = a;
+    p.sh[(int64_t)b * C + c] = p.beta[c] - mu * a;
   }
 }
 
+// K7 pass 2: y = x * a + sh (+ SiLU) over row tile blockIdx.x of sample
+// blockIdx.y, with the stats pass's tiles and thread layout. A thread holds
+// its channel vector's a and sh in registers and keeps GNT_UNROLL
+// 16-byte loads in flight; x is read evict-first (its last use). Each lane
+// walks its rows from the tile's end: the stats pass read those last, so the
+// first reads may find them in L2 (faster than the forward walk at every
+// VAE map on the H100).
+// Launched behind the stats pass as a programmatic dependent launch: its
+// first loads of x run before griddepcontrol.wait, so x must be complete
+// before the preceding kernel on the stream starts (as it is behind the
+// stats pass on the same x); a and sh are read only after the wait.
 template <typename T>
-int gn_stats(const void* x, void* part, const void* gamma, const void* beta, void* a, void* sh, int B, int N, int C,
-             int G, int rows, float eps, int clamp, cudaStream_t s) {
-  const int tiles = (N + rows - 1) / rows;
-  gn_stats_partial_kernel<T><<<dim3(tiles, B), 256, 0, s>>>((const T*)x, (float*)part, N, C, rows);
-  gn_fold_kernel<<<B, 256, 2 * C * sizeof(float), s>>>((const float*)part, (const float*)gamma, (const float*)beta,
-                                                       (float*)a, (float*)sh, tiles, N, C, G, eps, clamp);
+__global__ void __launch_bounds__(GNT_THREADS, GNT_BLOCKS) gn_apply_kernel(const void* x, const float* a,
+                                                                          const float* sh, void* y, int N, int C,
+                                                                          int rows, int silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  const GNTThread<T> t(N, C, rows);
+  if (t.lane >= t.P) return;
+  const int b = blockIdx.y;
+  float ga[VEC], be[VEC];
+  const int64_t base = ((int64_t)b * N + t.r0) * C;
+  const uint4* xv = reinterpret_cast<const uint4*>(static_cast<const T*>(x) + base) + t.cv;
+  uint4* yv = reinterpret_cast<uint4*>(static_cast<T*>(y) + base) + t.cv;
+  const int P = t.P, nr = t.nr;
+  auto at = [&](int i) { return (int64_t)(nr - 1 - i) * t.CV; };  // the lane's i-th row from the end, in vectors
+  auto apply = [&](const uint4& v, int i) {
+    float f[VEC];
+    unpack16(v, f);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float o = f[j] * ga[j] + be[j];
+      f[j] = silu ? silu_f(o) : o;
+    }
+    yv[at(i)] = pack16(f);
+  };
+  int r = t.lane;
+  uint4 v[GNT_UNROLL];
+#pragma unroll
+  for (int u = 0; u < GNT_UNROLL; ++u)
+    if (r + (GNT_UNROLL - 1) * P < nr) v[u] = __ldcs(xv + at(r + u * P));
+  // the first loads above overlap the stats pass's tail; a and sh only after it
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < VEC; j += 4) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(a + (int64_t)b * C + t.cv * VEC + j));
+    const float4 w = __ldg(reinterpret_cast<const float4*>(sh + (int64_t)b * C + t.cv * VEC + j));
+    ga[j] = u.x, ga[j + 1] = u.y, ga[j + 2] = u.z, ga[j + 3] = u.w;
+    be[j] = w.x, be[j + 1] = w.y, be[j + 2] = w.z, be[j + 3] = w.w;
+  }
+  for (; r + (GNT_UNROLL - 1) * P < nr; r += GNT_UNROLL * P) {
+    if (r != t.lane) {
+#pragma unroll
+      for (int u = 0; u < GNT_UNROLL; ++u) v[u] = __ldcs(xv + at(r + u * P));
+    }
+#pragma unroll
+    for (int u = 0; u < GNT_UNROLL; ++u) apply(v[u], r + u * P);
+  }
+  for (; r < nr; r += P) apply(__ldcs(xv + at(r)), r);
+}
+
+// what both passes take: whole 16-byte vectors a row, at most one per thread
+// of the CTA, 16-byte aligned, and tiles that cover the rows
+template <typename T>
+static bool gnt_takes(const void* x, int N, int C, int rows, int tiles) {
+  constexpr int VEC = 16 / sizeof(T);
+  return C > 0 && C % VEC == 0 && C / VEC <= GNT_THREADS && ((uintptr_t)x & 15) == 0 && rows > 0 && tiles > 0 &&
+         (int64_t)rows * tiles >= N && (int64_t)rows * (tiles - 1) < N;
+}
+
+template <typename T>
+int gn_stats(const GNTParams& p, int B, cudaStream_t s) {
+  if (!gnt_takes<T>(p.x, p.N, p.C, p.rows, p.tiles) || p.G < 1 || p.C % p.G) return (int)cudaErrorInvalidValue;
+  gn_stats_kernel<T><<<dim3(p.tiles, B), GNT_THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-int gn_apply(const void* x, const void* a, const void* b, void* y, int B, int N, int C, int silu, cudaStream_t s) {
-  const int64_t packs = (int64_t)B * N * C / VEC;
-  const int64_t blocks = std::min<int64_t>((packs + 255) / 256, 132 * 32);
-  gn_apply_kernel<T, VEC><<<(int)blocks, 256, 0, s>>>((const T*)x, (const float*)a, (const float*)b, (T*)y,
-                                                      (int64_t)N * C, C, packs, silu);
-  return (int)cudaGetLastError();
+template <typename T>
+int gn_apply(const void* x, const void* a, const void* sh, void* y, int B, int N, int C, int rows, int tiles, int silu,
+             cudaStream_t s) {
+  if (!gnt_takes<T>(x, N, C, rows, tiles) || ((uintptr_t)y & 15) || ((uintptr_t)a & 15) || ((uintptr_t)sh & 15))
+    return (int)cudaErrorInvalidValue;
+  // a programmatic dependent launch (the kernel waits for the preceding
+  // kernel's results before it reads a and sh)
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(tiles, B);
+  cfg.blockDim = dim3(GNT_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gn_apply_kernel<T>, x, (const float*)a, (const float*)sh, y, N, C,
+                                             rows, silu);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace mvdf
@@ -483,22 +599,25 @@ MVDF_API int mvdf_gn_max_clusters(int k, int threads, int smem, int resident, in
   return resident ? gn_max_clusters<float, true>(k, threads, smem, n) : gn_max_clusters<float, false>(k, threads, smem, n);
 }
 
-MVDF_API int mvdf_gn_stats(const void* x, void* part, const void* gamma, const void* beta, void* a, void* sh, int B,
-                           int N, int C, int G, int rows, float eps, int clamp, int dtype, void* stream) {
+// K7's stats pass with the fold, one launch: (tiles, B) CTAs of rows rows
+// (ops/groupnorm.py::plan_gn_tiled), the per-sample counters zero between
+// launches (the folding CTA wraps them back)
+MVDF_API int mvdf_gn_stats(const void* x, void* part, void* count, const void* gamma, const void* beta, void* a,
+                           void* sh, int B, int N, int C, int G, int rows, int tiles, float eps, int clamp, int dtype,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == DT_BF16 ? gn_stats<bf16>(x, part, gamma, beta, a, sh, B, N, C, G, rows, eps, clamp, s)
-                          : gn_stats<float>(x, part, gamma, beta, a, sh, B, N, C, G, rows, eps, clamp, s);
+  const GNTParams p{x, (float*)part, (unsigned*)count, (const float*)gamma, (const float*)beta, (float*)a, (float*)sh,
+                    N, C, G, rows, tiles, eps, clamp};
+  return dtype == DT_BF16 ? gn_stats<bf16>(p, B, s) : gn_stats<float>(p, B, s);
 }
 
-MVDF_API int mvdf_gn_apply(const void* x, const void* a, const void* b, void* y, int B, int N, int C, int silu,
-                           int dtype, void* stream) {
+// K7's apply pass on the stats pass's tiles, a programmatic dependent launch
+// behind the stats pass that made a and sh
+MVDF_API int mvdf_gn_apply(const void* x, const void* a, const void* sh, void* y, int B, int N, int C, int rows,
+                           int tiles, int silu, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned = (((uintptr_t)x | (uintptr_t)y) & 15) == 0;
-  if (dtype == DT_BF16)
-    return aligned && C % 8 == 0 ? gn_apply<bf16, 8>(x, a, b, y, B, N, C, silu, s)
-                                 : gn_apply<bf16, 1>(x, a, b, y, B, N, C, silu, s);
-  return aligned && C % 4 == 0 ? gn_apply<float, 4>(x, a, b, y, B, N, C, silu, s)
-                               : gn_apply<float, 1>(x, a, b, y, B, N, C, silu, s);
+  return dtype == DT_BF16 ? gn_apply<bf16>(x, a, sh, y, B, N, C, rows, tiles, silu, s)
+                          : gn_apply<float>(x, a, sh, y, B, N, C, rows, tiles, silu, s);
 }
 
 MVDF_API const char* mvdf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdfusion_tpu_torch.ops.attention import fused_attention, should_fuse_attention, xla_attention
-from mvdfusion_tpu_torch.ops.groupnorm import group_norm_act, group_norm_plain, should_fuse_gn
+from mvdfusion_tpu_torch.ops.groupnorm import group_norm_act, gn_route
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -76,11 +76,11 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm(32) in fp32 over NHWC input, optional fused SiLU. Gated
-    maps go through ops/groupnorm.py's wrapper: K1 for slices of at most 2^20
-    elements, the tiled K7 for larger maps under MVDF_GN_TILED=1 (the VAE's
-    64^2..256^2 maps; the decoder's 256^2 norm_out also with the fused convs
-    on)."""
+    """GroupNorm(32) in fp32 over NHWC input, optional fused SiLU, on
+    ops/groupnorm.py::gn_route's route: K1 for slices of at most 2^20
+    elements; on the card the tiled K7 for every larger map (the VAE's
+    64^2..256^2 maps), on the CPU the reference's route (K7's plain version
+    under MVDF_GN_TILED=1, else the plain GroupNorm)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, act: str = "none"):
         super().__init__()
@@ -90,11 +90,8 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x):
         x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-        if should_fuse_gn(x.shape, 32):
-            y = group_norm_act(x3, self.weight, self.bias, 32, self.eps, self.act)
-        else:
-            y = group_norm_plain(x3, self.weight, self.bias, 32, self.eps, self.act)
-        return y.reshape(x.shape)
+        route = gn_route(x.shape, 32, x.device.type)
+        return group_norm_act(x3, self.weight, self.bias, 32, self.eps, self.act, route).reshape(x.shape)
 
 
 class LayerNormFp32(nn.LayerNorm):

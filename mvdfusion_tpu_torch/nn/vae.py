@@ -5,10 +5,11 @@ downsample pads (0, 1, 0, 1) then convolves with stride 2; the decoder uses
 plain fp32 GroupNorm. Names follow the reference's encoder.down.{l}.block.{i},
 mid.block_1 / attn_1 / block_2, decoder.up.{l}, quant_conv, post_quant_conv.
 
-The reference's two switched VAE forms are honoured, both off by default:
-MVDF_GN_TILED=1 sends the GroupNorms of maps above 2^20 elements an image
-through the tiled form (ops/groupnorm.py, K7); MVDF_CONV3X3=1 sends the
-ResBlocks of maps of at least 64^2 through the fused conv (ops/conv3x3.py, K8).
+The GroupNorms of maps above 2^20 elements an image take the tiled form
+(ops/groupnorm.py, K7) on the card always, and on the CPU under the
+reference's MVDF_GN_TILED=1 (ops/groupnorm.py::gn_route). MVDF_CONV3X3=1,
+off by default as in the reference, sends the ResBlocks of maps of at least
+64^2 through the fused conv (ops/conv3x3.py, K8).
 """
 
 from __future__ import annotations

@@ -45,8 +45,8 @@ LN_SHAPES: collections.Counter = collections.Counter()
 _SIGNATURES = {
     "mvdf_groupnorm": "pppp" + "iiii" + "iiiiii" + "f" + "ii" + "p" + "i" + "p",
     "mvdf_gn_max_clusters": "iiiiip",
-    "mvdf_gn_stats": "pppppp" + "iiiii" + "f" + "ii" + "p",
-    "mvdf_gn_apply": "ppppiiiiip",
+    "mvdf_gn_stats": "ppppppp" + "iiiiii" + "f" + "ii" + "p",
+    "mvdf_gn_apply": "pppp" + "iiiiiii" + "p",
     "mvdf_conv3x3": "pppppppp" + "iiiiiii" + "p",
     "mvdf_attention": "ppppiiiiillllllllfiip",
     "mvdf_layernorm": "pppp" + "ii" + "f" + "i" + "p",

@@ -10,7 +10,7 @@ when called). Under it nn/vae.py::VAEResnetBlock computes
     out = conv(silu(h*a2 + b2)) + bias + res  res = x or nin_shortcut(x)
 - gn_fold_affine replaces the reference's gn_fold_affine (:62), whose stats
   pass is _gn_stats_kernel: on the card csrc/groupnorm.cu's K7 stats pass,
-  whose second kernel folds with the reference's UNCLAMPED variance,
+  one launch whose folding CTAs use the reference's UNCLAMPED variance,
   rsqrt(E[x^2] - mu^2 + eps) (conv3x3.py:89; its tiled GroupNorm clamps).
 - gn_silu_conv3x3 replaces _fwd_impl -> _conv_kernel (:95, :230): on the
   card csrc/conv3x3.cu, an implicit GEMM whose prologue applies the folded

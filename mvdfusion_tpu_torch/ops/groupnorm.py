@@ -11,15 +11,28 @@ on the H100 (one read, one write per element). `plan_group_norm` picks k and
 the CTA's shape from (B, N, C, dtype), once per shape.
 
 K7 replaces the reference's two-pass tiled form for larger maps (the VAE at
-64^2..256^2), _gn_tiled_impl with _gn_stats_kernel and _gn_apply_kernel, on
-under MVDF_GN_TILED=1 as in the reference: csrc/groupnorm.cu's stats pass
-(per-(batch, channel) fp32 sums over row tiles, written as per-tile partials
-and summed in a fixed order by a second small kernel: no float atomics, the
-same result on every run) that also folds the (B, G) moments into a
-per-(batch, channel) affine (the reference folds them in XLA between its
-kernels), then the apply pass (x*a + b, optional SiLU). Two reads and one
-write of x; bound by bytes. The stats pass also serves
-ops/conv3x3.py::gn_fold_affine.
+64^2..256^2), _gn_tiled_impl with _gn_stats_kernel and _gn_apply_kernel:
+csrc/groupnorm.cu's stats pass, one launch of one wave of row tiles
+(plan_gn_tiled) in which each thread streams a 16-byte channel vector over
+its rows, each tile writes its fp32 partial sums and the CTA that completes
+a sample adds them in tile order and folds the (B, G) moments into a
+per-(batch, channel) affine (the reference folds in XLA between its
+kernels); then the apply pass (x*a + b, optional SiLU). No float atomics:
+the same result on every run. Two reads and one write of x; bound by
+bytes. The stats pass also serves ops/conv3x3.py::gn_fold_affine.
+
+The route (gn_route). On a CPU tensor every GroupNorm takes the reference's
+route and the kernel's plain version: K1 where should_fuse_gn passes at
+HW*C <= 2^20, K7 where it passes above (MVDF_GN_TILED=1 and a tile from
+_pick_tile), the plain version otherwise. On a CUDA tensor every map above
+2^20 elements an image whose C K7 takes (a multiple of 8 and of the groups,
+at most 1024: whole 16-byte vectors, at most one a thread) launches K7,
+whatever MVDF_GN_TILED and _pick_tile say. The reference sends the maps it
+refuses to XLA's compiled GroupNorm on the TPU; the card's counterpart of
+that would be the plain version, which the port keeps off its main path.
+So on the card the only GroupNorms left plain are those whose C neither K1
+nor K7 takes (C not a multiple of the groups or of 8, or above 1024 at a
+large map); none of them is on the main path.
 """
 
 from __future__ import annotations
@@ -34,12 +47,8 @@ from mvdfusion_tpu_torch.ops import _lib
 _MAX_SLICE_ELEMS = 1 << 20
 # the reference's row-tile element budget for its tiled form
 # (ops/groupnorm.py:42); with _pick_tile it decides where that form runs, not
-# how the CUDA kernels tile
+# how the CUDA kernels tile (plan_gn_tiled)
 _TILE_ELEMS = 1 << 19
-# at most this many row tiles per batch element in the stats pass (the
-# partials the second pass sums), each at least _STATS_MIN_ROWS rows
-_STATS_MAX_TILES = 64
-_STATS_MIN_ROWS = 256
 
 # K1's plan (csrc/groupnorm.cu keeps the same limits): at most this many
 # threads a CTA, CTAs a cluster (16 is above the portable 8), bytes of
@@ -61,6 +70,17 @@ GN_CLUSTERS = (4, 8, 16)
 # the card's 3.35 TB/s
 GN_FIXED_US = 5.0
 GN_SM_BYTES_PER_US = 3.35e6 / 132
+
+# K7 (csrc/groupnorm.cu keeps the same constants): threads a CTA, CTAs an SM
+# (the kernels' launch bounds), 16-byte loads in flight a thread; its plan
+# fills one wave of the card's SMs with row tiles (on the H100, 8 loads were
+# no faster, 8 CTAs an SM spilled, and two waves of smaller tiles were slower)
+GNT_THREADS = 256
+GNT_BLOCKS_PER_SM = 4
+GNT_UNROLL = 4
+# the largest C that K7 takes in either dtype (fp32: 4 channels a vector,
+# one vector a thread)
+GNT_MAX_C = 4 * GNT_THREADS
 
 
 class GNPlan(NamedTuple):
@@ -164,6 +184,61 @@ def _launch_args(B: int, N: int, C: int, dtype, groups: int, plan: GNPlan | None
     return plan, args, int(plan.resident), _lib.dtype_code(dtype)
 
 
+class TiledPlan(NamedTuple):
+    """K7's launch for one (B, N, C, dtype): `tiles` row tiles a sample of
+    `rows` rows each (the last may hold fewer), a multiple of P row lanes a
+    channel vector x GNT_UNROLL."""
+
+    rows: int
+    tiles: int
+    P: int
+
+
+def plan_gn_tiled(B: int, N: int, C: int, dtype, sms: int = 132) -> TiledPlan:
+    """K7's tiles for x (B, N, C) of `dtype` on a card of `sms` SMs: a
+    thread owns one 16-byte channel vector (C / VEC of them a row, at most
+    GNT_THREADS), P = GNT_THREADS // (C / VEC) row lanes; B x tiles CTAs fill
+    at most one wave of GNT_BLOCKS_PER_SM CTAs an SM, each tile a whole
+    number of the CTA's P x GNT_UNROLL-row steps."""
+    _lib.dtype_code(dtype)
+    vec = _vec(dtype)
+    if C % vec or not 1 <= C // vec <= GNT_THREADS:
+        raise ValueError(f"K7 takes C a multiple of {vec} and at most {vec * GNT_THREADS} in {dtype}, not C={C}")
+    P = GNT_THREADS // (C // vec)
+    step = P * GNT_UNROLL
+    per_sample = max(1, sms * GNT_BLOCKS_PER_SM // B)
+    rows = -(-N // per_sample)
+    rows = -(-rows // step) * step
+    return TiledPlan(rows, -(-N // rows), P)
+
+
+_TILED_PLANS: dict = {}
+
+
+def card_tiled_plan(B: int, N: int, C: int, dtype, device) -> TiledPlan:
+    """plan_gn_tiled on `device`'s SM count, made once per shape."""
+    key = (B, N, C, dtype, device)
+    hit = _TILED_PLANS.get(key)
+    if hit is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        hit = _TILED_PLANS[key] = plan_gn_tiled(B, N, C, dtype, sms)
+    return hit
+
+
+_FOLD_COUNTS: dict = {}
+
+
+def _fold_counts(device, B: int):
+    """The stats pass's per-sample tile counters for the current stream on
+    `device`: zero before each launch (the folding CTA wraps its sample's
+    counter back to 0), kept across calls."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counts = _FOLD_COUNTS.get(key)
+    if counts is None or counts.numel() < B:
+        counts = _FOLD_COUNTS[key] = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+    return counts
+
+
 def _affine(t):
     """gamma or beta as K1 reads it: fp32, contiguous, 16-byte aligned (as
     it comes where it already is)."""
@@ -195,6 +270,33 @@ def should_fuse_gn(shape, groups: int) -> bool:
     if n * C <= _MAX_SLICE_ELEMS:
         return True
     return bool(os.environ.get("MVDF_GN_TILED")) and _pick_tile(n, C) is not None
+
+
+def tiled_takes(C: int, groups: int) -> bool:
+    """Whether K7 takes C channels in `groups` groups in either dtype."""
+    return C % groups == 0 and C % 8 == 0 and C <= GNT_MAX_C
+
+
+def gn_route(shape, groups: int, device_type: str, gated: bool = True) -> str:
+    """Which form computes GroupNorm of an NHWC or (B, N, C) `shape`: "k1",
+    "k7" or "plain". `gated`: the model's GroupNorm32, behind
+    should_fuse_gn; else a direct call of group_norm_act, the reference's
+    _gn_fwd_impl (K1 up to 2^20 elements an image, K7 above where
+    _pick_tile finds a tile, else the plain version). On "cuda" every map
+    above 2^20 elements an image goes to K7 where tiled_takes its C and to
+    the plain version where not, gated or not (module docstring); on "cpu"
+    the route is the reference's."""
+    n = 1
+    for d in shape[1:-1]:
+        n *= d
+    C = shape[-1]
+    if n * C > _MAX_SLICE_ELEMS and device_type == "cuda":
+        return "k7" if tiled_takes(C, groups) else "plain"
+    if gated and not should_fuse_gn(shape, groups):
+        return "plain"
+    if n * C <= _MAX_SLICE_ELEMS:
+        return "k1"
+    return "k7" if _pick_tile(n, C) is not None else "plain"
 
 
 def group_norm_plain(x, weight, bias, groups: int, eps: float, act: str = "none"):
@@ -273,48 +375,65 @@ def launch_group_norm(x, weight, bias, groups: int, eps: float, act: str = "none
     return y
 
 
-def launch_fold(x, weight, bias, groups: int, eps: float, clamp: bool):
-    """csrc/groupnorm.cu's stats pass on a CUDA (B, N, C) tensor: per-tile
-    channel sums, then their sum and the fold in a second kernel. Returns the
-    folded affine (a, b), each (B, C) fp32 (no counting)."""
+def _tiled_operand(x, plan: TiledPlan | None):
+    """x contiguous and 16-byte aligned, and K7's plan for it."""
+    B, N, C = x.shape
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("K7 reads 16-byte vectors: x must be 16-byte aligned")
+    return x, plan or card_tiled_plan(B, N, C, x.dtype, x.device)
+
+
+def launch_fold(x, weight, bias, groups: int, eps: float, clamp: bool, plan: TiledPlan | None = None):
+    """csrc/groupnorm.cu's stats pass on a CUDA (B, N, C) tensor, one launch:
+    per-tile channel sums, their sum and the fold by the CTA that completes
+    each sample. Returns the folded affine (a, b), each (B, C) fp32 (no
+    counting)."""
     B, N, C = x.shape
     if C % groups:
         raise ValueError(f"C={C} not divisible by {groups} groups")
-    x = x.contiguous()
-    rows = max(_STATS_MIN_ROWS, -(-N // _STATS_MAX_TILES))
-    part = torch.empty(B, -(-N // rows), 2, C, dtype=torch.float32, device=x.device)
+    x, plan = _tiled_operand(x, plan)
+    part = torch.empty(B, plan.tiles, 2, C, dtype=torch.float32, device=x.device)
     a = torch.empty(B, C, dtype=torch.float32, device=x.device)
     sh = torch.empty_like(a)
-    _lib.call("mvdf_gn_stats", x, part, weight.float().contiguous(), bias.float().contiguous(), a, sh,
-              B, N, C, groups, rows, float(eps), int(clamp), _lib.dtype_code(x.dtype))
+    _lib.call("mvdf_gn_stats", x, part, _fold_counts(x.device, B), _affine(weight), _affine(bias), a, sh,
+              B, N, C, groups, plan.rows, plan.tiles, float(eps), int(clamp), _lib.dtype_code(x.dtype))
     return a, sh
 
 
-def launch_apply_affine(x, a, b, act: str = "none"):
-    """csrc/groupnorm.cu's apply pass on a CUDA (B, N, C) tensor (no counting)."""
+def launch_apply_affine(x, a, b, act: str = "none", plan: TiledPlan | None = None):
+    """csrc/groupnorm.cu's apply pass on a CUDA (B, N, C) tensor, on the
+    stats pass's tiles, each walked from its end (no counting). A
+    programmatic dependent launch: it starts during the tail of the kernel
+    before it on the stream and loads x ahead of that kernel's end, so x
+    must be complete before that kernel starts (as behind launch_fold on
+    the same x); a and b are read after it ends."""
     B, N, C = x.shape
-    x = x.contiguous()
+    x, plan = _tiled_operand(x, plan)
     y = torch.empty_like(x)
-    _lib.call("mvdf_gn_apply", x, a.float().contiguous(), b.float().contiguous(), y, B, N, C,
-              int(act == "silu"), _lib.dtype_code(x.dtype))
+    _lib.call("mvdf_gn_apply", x, _affine(a), _affine(b), y, B, N, C, plan.rows, plan.tiles, int(act == "silu"),
+              _lib.dtype_code(x.dtype))
     return y
 
 
 def launch_group_norm_tiled(x, weight, bias, groups: int, eps: float, act: str = "none"):
-    """K7 on a CUDA (B, N, C) tensor: stats pass with the fold, apply pass (no counting)."""
-    a, b = launch_fold(x, weight, bias, groups, eps, clamp=True)
-    return launch_apply_affine(x, a, b, act)
+    """K7 on a CUDA (B, N, C) tensor: stats pass with the fold, apply pass
+    launched behind it (no counting)."""
+    x, plan = _tiled_operand(x, None)
+    a, b = launch_fold(x, weight, bias, groups, eps, clamp=True, plan=plan)
+    return launch_apply_affine(x, a, b, act, plan)
 
 
-def group_norm_act(x, weight, bias, groups: int, eps: float, act: str = "none"):
-    """GroupNorm(+SiLU) of (B, N, C), dispatched by shape as the reference's
-    _gn_fwd_impl: N*C > 2^20 takes the tiled form (K7), or the plain version
-    where the reference finds no tile; otherwise K1. A CUDA tensor launches
-    the kernel, a CPU tensor takes the kernel's plain version."""
-    B, N, C = x.shape
-    if N * C > _MAX_SLICE_ELEMS:
-        if _pick_tile(N, C) is None:  # the reference computes its XLA twin here
-            return group_norm_plain(x, weight, bias, groups, eps, act)
+def group_norm_act(x, weight, bias, groups: int, eps: float, act: str = "none", route: str | None = None):
+    """GroupNorm(+SiLU) of (B, N, C) on `route` (gn_route's answer; by
+    default the ungated route for x's device): "k7" the tiled form, "k1" K1,
+    "plain" the plain version. A CUDA tensor launches the kernel, a CPU
+    tensor takes the kernel's plain version."""
+    if route is None:
+        route = gn_route(x.shape, groups, x.device.type, gated=False)
+    if route == "plain":
+        return group_norm_plain(x, weight, bias, groups, eps, act)
+    if route == "k7":
         if not x.is_cuda:
             return group_norm_tiled_plain(x, weight, bias, groups, eps, act)
         y = launch_group_norm_tiled(x, weight, bias, groups, eps, act)

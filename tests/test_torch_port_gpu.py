@@ -340,28 +340,109 @@ def test_gpu_site_layernorm_matches_plain(cuda, dt):
         assert torch.equal(got, K3.layernorm(x, w, b))
 
 
+# K7's shapes: ragged last tiles (N = 3000, 700), 8 groups of 5 channels at
+# C = 40; the VAE's large maps: the decoder's 64^2 x 512 and 256^2 x 128 at
+# B = 8, the encoder's 128^2 x 256 at B = 9, the eval chunk's 128^2 x 512 at
+# B = 7
+K7_SHAPES = [(2, 3000, 96), (3, 700, 40), (8, 4096, 512), (8, 65536, 128), (9, 16384, 256), (7, 16384, 512)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gpu_k7_groupnorm_tiled_matches_plain(cuda, dt):
-    """The tiled GroupNorm's stats pass with its fold (a ragged last row tile
-    at N=3000; the eval path's B=7 chunk; 8 groups of 5 channels at C=40)
-    and the apply pass (8 and 4 elements a thread at C = 96 and 128, one at
-    C = 40), and gn_fold_affine's unclamped fold. The stats pass adds its
-    partials in a fixed order: two runs agree bit for bit."""
+    """The tiled GroupNorm (its one-launch stats pass with the fold, then the
+    apply pass; whole and launched pass by pass) at K7_SHAPES against its
+    plain version:
+    bf16 within 1 bf16 ulp of max|plain| and a mean of 3e-4 x max|plain|,
+    fp32 within 1e-4 x max|plain| (fp32 sums in another order); gn_fold_
+    affine's unclamped fold within 1e-4 x max|plain|. The stats pass adds
+    its partials in a fixed order and its folding CTA resets the sample's
+    counter: three launches in a row give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    for shape in ((2, 3000, 96), (7, 4096, 128), (3, 700, 40)):
+    for shape in K7_SHAPES:
         x = _rand(g, cuda, dt, *shape, std=3.0) + 1
-        w, b = 1 + _rand(g, cuda, torch.float32, shape[-1], std=0.1), _rand(g, cuda, torch.float32, shape[-1], std=0.1)
-        groups = 8 if shape[-1] == 40 else 32
+        C = shape[-1]
+        w, b = 1 + _rand(g, cuda, torch.float32, C, std=0.1), _rand(g, cuda, torch.float32, C, std=0.1)
+        groups = 8 if C == 40 else 32
         for act in ("none", "silu"):
-            _gpu_close(K1.launch_group_norm_tiled(x, w, b, groups, 1e-6, act),
-                       K1.group_norm_tiled_plain(x, w, b, groups, 1e-6, act), dt)
-        (ka, kb), (pa, pb) = K8.launch_gn_fold_affine(x, w, b, groups, 1e-6), K8.gn_fold_affine_plain(x, w, b, groups, 1e-6)
-        _gpu_close(ka, pa, torch.float32)
-        _gpu_close(kb, pb, torch.float32)
+            want = K1.group_norm_tiled_plain(x, w, b, groups, 1e-6, act)
+            runs = [K1.launch_group_norm_tiled(x, w, b, groups, 1e-6, act) for _ in range(3)]
+            a, sh = K1.launch_fold(x, w, b, groups, 1e-6, True)
+            runs.append(K1.launch_apply_affine(x, a, sh, act))
+            for got in runs:
+                if dt == torch.bfloat16:
+                    _close_ulp(got, want, mean_tol=3e-4)
+                else:
+                    err, top = (got - want).abs().max().item(), want.abs().max().item()
+                    assert err <= 1e-4 * top, f"{shape} {act}: max|diff| {err:.3e} > 1e-4 x {top:.3e}"
+                assert torch.equal(got, runs[0]), f"{shape} {act}: runs differ"
+        folds = [K8.launch_gn_fold_affine(x, w, b, groups, 1e-6) for _ in range(3)]
+        pa, pb = K8.gn_fold_affine_plain(x, w, b, groups, 1e-6)
+        for ka, kb in folds:
+            for got, want in ((ka, pa), (kb, pb)):
+                err, top = (got - want).abs().max().item(), want.abs().max().item()
+                assert err <= 1e-4 * top, f"{shape} fold: max|diff| {err:.3e} > 1e-4 x {top:.3e}"
+            assert torch.equal(ka, folds[0][0]) and torch.equal(kb, folds[0][1]), f"{shape}: folds differ"
         _gpu_close(K1.launch_apply_affine(x, pa, pb, "silu"), K1.apply_affine_plain(x, pa, pb, "silu"), dt)
-        first, again = K1.launch_fold(x, w, b, groups, 1e-6, True), K1.launch_fold(x, w, b, groups, 1e-6, True)
-        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_act_leaves_plain_what_k7_cannot_take(cuda, monkeypatch):
+    """A CUDA map above 2^20 elements whose C K7 cannot take (C = 2048, above
+    GNT_MAX_C) runs the plain GroupNorm, ungated and with MVDF_GN_TILED=1
+    (where the reference's _pick_tile finds a tile), without a launch; a
+    map K7 takes launches it."""
+    from mvdfusion_tpu_torch.ops import _lib
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w, b = 1 + _rand(g, cuda, torch.float32, 2048, std=0.1), _rand(g, cuda, torch.float32, 2048, std=0.1)
+    x = _rand(g, cuda, torch.bfloat16, 1, 4096, 2048) + 1
+    for gn_tiled in (False, True):
+        if gn_tiled:
+            monkeypatch.setenv("MVDF_GN_TILED", "1")
+        else:
+            monkeypatch.delenv("MVDF_GN_TILED", raising=False)
+        _lib.reset_launches()
+        got = K1.group_norm_act(x, w, b, 32, 1e-6, "silu")
+        assert _lib.LAUNCHES["groupnorm_tiled"] == 0 and _lib.LAUNCHES["groupnorm"] == 0, dict(_lib.LAUNCHES)
+        assert torch.equal(got, K1.group_norm_plain(x, w, b, 32, 1e-6, "silu"))
+    _lib.reset_launches()
+    K1.group_norm_act(x[..., :1024].contiguous(), w[:1024], b[:1024], 32, 1e-6, "silu")
+    assert _lib.LAUNCHES["groupnorm_tiled"] == 1, dict(_lib.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_gpu_vae_decode_takes_k7_at_every_large_map(cuda, monkeypatch):
+    """One full-width VAE decode of 8 latents (bf16 convs, fp32 norms, random
+    weights) on the default route: K7 at each of the decoder's 19 GroupNorms
+    above 2^20 elements an image, K1 at its 11 at 32^2, the plain GroupNorm
+    never."""
+    import os
+
+    from mvdfusion_tpu_torch.nn.layers import GroupNorm32
+    from mvdfusion_tpu_torch.nn.vae import AutoencoderKL
+    from mvdfusion_tpu_torch.nn.viewfusion import randomize_
+    from mvdfusion_tpu_torch.ops import _lib
+
+    for var in ("MVDF_GN_TILED", "MVDF_CONV3X3"):
+        monkeypatch.delenv(var, raising=False)
+    assert not os.environ.get("MVDF_GN_TILED")
+    plain = []
+    real = K1.group_norm_plain
+    monkeypatch.setattr(K1, "group_norm_plain", lambda *a: plain.append(a[0].shape) or real(*a))
+    vae = randomize_(AutoencoderKL().to(cuda), seed=0)
+    norms = {id(p) for m in vae.modules() if isinstance(m, GroupNorm32) for p in m.parameters()}
+    for p in vae.parameters():
+        if id(p) not in norms:
+            p.data = p.data.to(torch.bfloat16)
+    z = torch.randn(8, 32, 32, 4, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    _lib.reset_launches()
+    with torch.no_grad():
+        img = vae.decode(z)
+    torch.cuda.synchronize()
+    assert tuple(img.shape) == (8, 256, 256, 3) and bool(torch.isfinite(img.float()).all())
+    assert _lib.LAUNCHES["groupnorm_tiled"] == 19 and _lib.LAUNCHES["groupnorm"] == 11, dict(_lib.LAUNCHES)
+    assert plain == []
 
 
 @pytest.mark.gpu
