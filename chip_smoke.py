@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--profile STEPS]
+    python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--train-steps N] [--profile STEPS]
     python3 chip_smoke.py --profile-only STEPS
     python3 chip_smoke.py --k1-sweep
     python3 chip_smoke.py --k5-sweep
@@ -93,7 +93,25 @@ Phases, each printed with elapsed seconds as it starts and ends:
               range and the launch counts, holds the default route against
               the plain GroupNorm's and the switched forms against the
               default, then times encode and decode per route
-  8. stages   K4 and K4b traced by kernel name (crossview_stages): device
+  8. train    the train path (run_train): configs/train.yaml's model in
+              bf16 with random weights and its trainer section (5 targets,
+              4 scenes a call, grad_accum_step 4, finetune_unet) on a
+              2-scene GSO-layout directory of random 256^2 images it
+              writes (no Objaverse render ships: the cut), through
+              cli/train.py's main for --train-steps optimizer steps (the
+              default step, train_fuse_mode "never") with a checkpoint,
+              then a one-step resume; checks the frozen parameters
+              bit-equal, K1 and K2 launched inside the step, finite losses
+              and gradients; prints s a call and an optimizer step,
+              scenes/s and peak memory; then one micro-step under "model"
+              against "never" (TRAIN_MODE_* tolerances), one full-width
+              apply_model_cfg with the kernels against MVDF_DISABLE_PALLAS=1
+              (tools/numerics_check.py, no launch under the switch), and
+              each autograd Function's input gradients at a train or
+              flagship shape in bf16 against the plain version's autograd
+              (bit-equal, or 1 bf16 ulp where its backward adds with
+              atomics); with --profile, STEPS more calls by kernel
+  9. stages   K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -1671,6 +1689,345 @@ def vae_route_times(model, images, z, card: str) -> None:
                     f"max {max(ts):.4f} over {VAE_ITERS} calls after one warm-up, on {card}")
 
 
+# ---------------------------------------------------------------- phase 9
+TRAIN_CONFIG = HERE / "configs" / "train.yaml"
+TRAIN_SCENES = 2  # GSO-layout scenes the phase writes: no Objaverse render ships
+# the train phase's tolerances (PERF.md): one micro-step under
+# train_fuse_mode "model" (K3 at the 32^2 and 16^2 sites, K4 in GridAttn)
+# against "never" (their module paths) on the same parameters and draws, bf16
+TRAIN_MODE_LOSS_RTOL = 5e-2  # |loss(model) - loss(never)| <= this x |loss(never)|
+# per trainable leaf: max|g(model) - g(never)| <= RTOL x max|g(never)| of the
+# leaf, or <= FLOOR x the largest max|g(never)| of any leaf (the floor of a
+# gradient the structure makes zero or near it: a shift ahead of a
+# GroupNorm or a softmax, rounding noise in both modes)
+TRAIN_MODE_GRAD_RTOL = 0.25
+TRAIN_MODE_GRAD_FLOOR = 1e-2
+
+
+def write_gso(root: Path, scenes: int, size: int, seed: int) -> None:
+    """A GSO-layout directory: `scenes` scene folders of 16 random RGBA pngs
+    at size^2 and the subset list test.json."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = [f"scene_{s}" for s in range(scenes)]
+    for name in names:
+        (root / name).mkdir(parents=True)
+        for i in range(16):
+            rgba = (rng.uniform(size=(size, size, 4)) * 255).astype(np.uint8)
+            rgba[..., 3] = 255
+            Image.fromarray(rgba, "RGBA").save(root / name / f"{i:03d}.png")
+    (root / "test.json").write_text(json.dumps(names))
+
+
+def train_config(tmp: Path, size: int, save_interval: int) -> Path:
+    """configs/train.yaml with its dataset replaced by the GSO directory under
+    `tmp`, its saver writing under `tmp` (a checkpoint every save_interval
+    steps, no vis or loss plot); model and trainer sections as they stand."""
+    import yaml
+
+    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+    cfg["dataset"] = {"target": "gso", "params": {"root": str(tmp / "gso"), "subset": "test", "image_size": size}}
+    cfg["saver"] = {"exp_dir": str(tmp / "exp") + "/", "print_interval": 1, "save_interval": save_interval,
+                    "vis_interval": 0, "loss_interval": 10**9}
+    path = tmp / "train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def function_cases(rnd, dev, dt):
+    """Each kernel entry point that is a torch.autograd.Function, at a shape
+    of the train step or the flagship in `dt`: (name, entry, plain, inputs,
+    atomics). `atomics`: the plain version's backward sums with atomics
+    (index_add in the gather, cuDNN's weight gradient) and so is not
+    bit-reproducible."""
+    from mvdfusion_tpu_torch.ops import attention as K2
+    from mvdfusion_tpu_torch.ops import block as K3
+    from mvdfusion_tpu_torch.ops import conv3x3 as K8
+    from mvdfusion_tpu_torch.ops import crossview as K4
+    from mvdfusion_tpu_torch.ops import groupnorm as GN
+
+    gn = lambda route: (lambda x, w, b: GN.group_norm_act(x, w, b, 32, 1e-5, "silu", route))
+    gn_plain = lambda f: (lambda x, w, b: f(x, w, b, 32, 1e-5, "silu"))
+    cases = [
+        ("K1 group_norm_act (5, 1024, 320)", gn("k1"), gn_plain(GN.group_norm_plain),
+         [rnd(5, 1024, 320, dt=dt), 1 + rnd(320, std=0.1), rnd(320, std=0.1)], False),
+        ("K7 group_norm_act (6, 65536, 128)", gn("k7"), gn_plain(GN.group_norm_tiled_plain),
+         [rnd(6, 65536, 128, dt=dt), 1 + rnd(128, std=0.1), rnd(128, std=0.1)], False),
+        ("K2 fused_attention (5, 1024, 8, 40)", lambda q, k, v: K2.fused_attention(q, k, v, 40**-0.5),
+         lambda q, k, v: K2.attention_plain(q, k, v, 40**-0.5), [rnd(5, 1024, 8, 40, dt=dt) for _ in range(3)],
+         False),
+    ]
+    for form, (B, N, C) in (("split", (5, 1024, 320)), ("single", (5, 1024, 320)), ("big", (5, 64, 1280))):
+        x, a2, w = site_inputs(rnd, B, N, C, dt, a2_map=C == 640)
+        plain = K3.transformer_block_big_plain if form == "big" else K3.transformer_block_plain
+        cases.append((f"K{ {'split': 3, 'single': 5, 'big': 6}[form]} transformer_block {form} ({B}, {N}, {C})",
+                      lambda x, a2, *t, form=form: K3.transformer_block(x, a2, K3.BlockWeights(*t), 8, form),
+                      lambda x, a2, *t, plain=plain: plain(x, a2, K3.BlockWeights(*t), 8), [x, a2, *w], False))
+    for V, name in ((8, "K4 crossview_aggregate V=8"), (15, "K4b crossview_aggregate V=15")):
+        args, *_ = cv_inputs(K4, rnd, dev, V, 32, 256, DIT_LAYERS, 8, 768, dt)
+        xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs = args
+        L = len(w.qkv_w)
+        flat = K4._flat_weights(kg, w)
+        plain = K4.crossview_two_phase_plain if K4.crossview_route(V, 32, 32, 256, dt) == "two_phase" else K4.crossview_plain
+        cases.append((name, lambda *t, L=L, heads=heads, freqs=freqs: K4.crossview_aggregate(
+                          *t[:6], *K4._unflat_weights(t[6:], L, 0), heads, freqs),
+                      lambda *t, L=L, heads=heads, freqs=freqs, plain=plain: plain(
+                          *t[:6], *K4._unflat_weights(t[6:], L, 0), heads, freqs),
+                      [xy, pts, centers, mask, b_acc, maps_p, *flat], True))
+    Cin = Cout = 256
+    cases.append(("K8 gn_silu_conv3x3 (1, 64, 64, 256)", K8.gn_silu_conv3x3, K8.conv3x3_plain,
+                  [rnd(1, 64, 64, Cin, dt=dt), 1 + rnd(1, Cin, std=0.1), rnd(1, Cin, std=0.1),
+                   rnd(Cout, Cin, 3, 3, std=(9 * Cin) ** -0.5, dt=dt), rnd(Cout, std=0.1), rnd(1, Cout, std=0.1),
+                   rnd(1, 64, 64, Cout, dt=dt)], True))
+    return cases
+
+
+def function_grad_checks(dev) -> None:
+    """Each Function's input gradients at a flagship or train-step shape in
+    bf16 (its forward the kernel, its backward the plain version's autograd
+    on the saved inputs) against the plain version's own autograd on the
+    same inputs and output gradient: bit-equal, or within 1 bf16 ulp of
+    max|grad| where the plain backward sums with atomics."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rnd = lambda *s, std=1.0, dt=torch.float32: (torch.randn(*s, generator=gen, device=dev) * std).to(dt)
+    for name, entry, plain, inputs, atomics in function_cases(rnd, dev, torch.bfloat16):
+        leaves = [t.detach().requires_grad_(True) if t.is_floating_point() else t for t in inputs]
+        _lib.reset_launches()
+        out = entry(*leaves)
+        launched = sum(_lib.LAUNCHES.values())
+        check(out.grad_fn is not None and launched > 0, f"{name}: no graph or no launch ({launched})")
+        g = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        wrt = [t for t in leaves if t.requires_grad]
+        got = torch.autograd.grad(out, wrt, g)
+        want = torch.autograd.grad(plain(*leaves), wrt, g)
+        again = torch.autograd.grad(plain(*leaves), wrt, g) if atomics else want
+        ulps = lambda xs, ys: [((a.float() - b.float()).abs().max() / bf16_ulp(b.float().abs().max())).item()
+                               for a, b in zip(xs, ys)]
+        per, own = ulps(got, want), ulps(again, want)
+        worst, equal = max(per), all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        if atomics:
+            top = sorted(range(len(per)), key=lambda i: -per[i])[:4]
+            log(f"  {name}: by input (index: Function vs plain, plain vs itself, in bf16 ulp of max|grad|, "
+                f"max|grad|): " + "; ".join(f"{i}: {per[i]:.3f}, {own[i]:.3f}, {want[i].abs().max().item():.3e}"
+                                            for i in top))
+        ok = equal if not atomics else worst <= 1.0
+        log(f"  {name}: {len(wrt)} input gradients against the plain version's autograd: "
+            f"{'bit-equal' if equal else f'at most {worst:.3f} bf16 ulp of max|grad|'} "
+            f"(tolerance: {'1 ulp, its backward sums with atomics' if atomics else 'bit-equal'}) -> "
+            f"{'ok' if ok else 'MISS'}")
+        check(ok, f"{name}: gradients disagree with the plain version's")
+
+
+def train_mode_gap(model, dataset, dev) -> dict:
+    """One micro-step (one scene, 5 targets) under train_fuse_mode "model"
+    (fuse_mode "auto": the sites' and GridAttn's kernels) and "never" on the
+    same parameters and draws: the loss's relative gap and each trainable
+    leaf's max|diff| against TRAIN_MODE_*; checks finiteness, and the
+    launches of K3 and K4 under "model"."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+
+    sc = dataset[0]
+    scene = [torch.as_tensor(np.asarray(sc[k], np.float32), device=dev) for k in ("images", "R", "T", "f", "c")]
+    scene += [torch.tensor([0], device=dev), torch.arange(1, 6, device=dev)]
+    draws = model.loss_draws(5, dev, torch.Generator(device=dev).manual_seed(SEED + 5))
+    cfg, out = model.cfg, {}
+    try:
+        for mode in ("never", "auto"):
+            model.cfg = dataclasses.replace(cfg, fuse_mode=mode)
+            model.zero_grad(set_to_none=True)
+            _lib.reset_launches()
+            loss = model.p_losses(*scene, **draws)
+            loss.backward()
+            out[mode] = (loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                       if p.grad is not None}, dict(_lib.LAUNCHES))
+            model.zero_grad(set_to_none=True)
+    finally:
+        model.cfg = cfg
+    (ln, gn, cn), (lm, gm, cm) = out["never"], out["auto"]
+    check(math.isfinite(ln) and math.isfinite(lm), f"non-finite loss {ln} {lm}")
+    check(all(bool(torch.isfinite(g).all()) for g in gn.values()), "non-finite gradients (never)")
+    check(all(bool(torch.isfinite(g).all()) for g in gm.values()), "non-finite gradients (model)")
+    check(set(gn) == set(gm), "the two modes' gradients reach different parameters")
+    gap = abs(lm - ln) / abs(ln)
+    top = max(g.float().abs().max().item() for g in gn.values())
+    ratios, over = {}, []
+    for n in gn:
+        diff = (gm[n].float() - gn[n].float()).abs().max().item()
+        scale = gn[n].float().abs().max().item()
+        ratios[n] = diff / max(scale, 1e-30)
+        if diff > max(TRAIN_MODE_GRAD_RTOL * scale, TRAIN_MODE_GRAD_FLOOR * top):
+            over.append(n)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])
+    log(f"  micro-step under \"model\" against \"never\": loss {lm:.6f} vs {ln:.6f}, relative gap {gap:.3e} "
+        f"(tolerance {TRAIN_MODE_LOSS_RTOL:g}); {len(ratios)} trainable leaves, max|diff| / max|g(never)| median "
+        f"{sorted(ratios.values())[len(ratios) // 2]:.3e}, largest " + ", ".join(f"{n} {r:.3e}" for n, r in worst[:4])
+        + f" (tolerance {TRAIN_MODE_GRAD_RTOL:g} x max|g(never)| or {TRAIN_MODE_GRAD_FLOOR:g} x {top:.3e}, the largest "
+        f"max|g(never)|, each; {len(over)} over)")
+    log(f"  launches under \"never\" {cn}; under \"model\" {cm}")
+    if dev.type == "cuda":
+        check(cn.get("transformer_block", 0) == 0 and cn.get("crossview", 0) == 0, "\"never\" launched a site kernel")
+        check(cm.get("transformer_block", 0) > 0 and cm.get("crossview", 0) > 0, "\"model\" launched no K3 or K4")
+    check(gap <= TRAIN_MODE_LOSS_RTOL, f"loss gap {gap:.3e} between the modes")
+    check(not over, f"{len(over)} leaves' gradients differ between the modes past {TRAIN_MODE_GRAD_RTOL}: {over[:5]}")
+    return dict(gap=gap, worst=worst[0])
+
+
+def profile_train(model, state, tc, dataset, scenes: int, calls: int) -> None:
+    """torch.profiler over `calls` train steps of `scenes` scenes (the
+    dataset's scenes in turn, views 0 -> 1..5), by kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvdfusion_tpu_torch.pipeline import trainer
+
+    dev = torch.device("cuda")
+    sc = [dataset[i % len(dataset)] for i in range(scenes)]
+    batch = {k: torch.as_tensor(np.stack([np.asarray(s[k], np.float32) for s in sc]), device=dev)
+             for k in ("images", "R", "T", "f", "c")}
+    batch["input_idx"] = torch.zeros(scenes, 1, dtype=torch.long, device=dev)
+    batch["target_idx"] = torch.arange(1, 6, device=dev).repeat(scenes, 1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    trainer.train_step(model, state, batch, tc, generator=g)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            trainer.train_step(model, state, batch, tc, generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize_profile(prof, wall, calls, f"train, {scenes} scenes a call", "call", top=24)
+
+
+def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = False, profile: int = 0) -> dict:
+    """The train path through cli/train.py's main at configs/train.yaml's
+    model (bf16, random weights from SEED; `tiny`: the tiny config, a CPU
+    rehearsal) and trainer section (5 targets, scenes_per_chip 4,
+    grad_accum_step 4, finetune_unet) on a 2-scene GSO-layout directory of
+    random 256^2 images it writes to a temporary directory: `steps`
+    optimizer steps with a checkpoint at the end, then a one-step resume.
+    Checks the frozen parameters bit-equal after the steps, K1 and K2
+    launched inside them, the resume, then the kernels-on/off gaps
+    (train_mode_gap, tools/numerics_check.py with its launches under the
+    switch) and each Function's gradients (on the card). `profile`: trace
+    that many more calls on the resumed model by kernel (on the card)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mvdfusion_tpu_torch.cli import train as cli
+    from mvdfusion_tpu_torch.core.config import build_dataset, build_train_config, load_yaml
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.pipeline import trainer
+    from mvdfusion_tpu_torch.tools import numerics_check
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    init0, step0 = trainer.init_train_state, trainer.train_step
+    calls, frozen = [], {}
+
+    def init_hook(model, tc):
+        state = init0(model, tc)
+        if not frozen:
+            frozen.update({n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad})
+        return state
+
+    def step_hook(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        loss = step0(*a, **kw)
+        value = float(loss)
+        calls.append((time.perf_counter() - t0, value))
+        return loss
+
+    with tempfile.TemporaryDirectory() as tmpd:
+        tmp = Path(tmpd)
+        size = 64 if tiny else 256
+        write_gso(tmp / "gso", TRAIN_SCENES, size, SEED)
+        tc = build_train_config(load_yaml(str(TRAIN_CONFIG)))
+        k = tc.grad_accum_step
+        spc = int(load_yaml(str(TRAIN_CONFIG))["trainer"]["scenes_per_chip"])
+        cfgp = train_config(tmp, size, k * steps)
+        argv = ["-c", str(cfgp), "--device", device, "--seed", str(SEED)] + (["--tiny"] if tiny else [])
+        trainer.init_train_state, trainer.train_step = init_hook, step_hook
+        try:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            model, state = cli.main(argv + ["--max-steps", str(k * steps)])
+            run_s = time.perf_counter() - t0
+            counts = dict(_lib.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+            check(state.step == k * steps and state.opt_state["count"] == steps,
+                  f"{state.step} calls, {state.opt_state['count']} optimizer steps")
+            check(all(math.isfinite(v) for _, v in calls), f"non-finite loss {calls}")
+            params = dict(model.named_parameters())
+            check(len(frozen) > 0 and all(torch.equal(params[n], t) for n, t in frozen.items()),
+                  "a frozen parameter moved")
+            ckpt = tmp / "exp" / "ckpt"
+            check((ckpt / "latest").read_text() == f"step_{k * steps:08d}", "no checkpoint at the last step")
+            per_call = [s for s, _ in calls]
+            opt_s = sum(per_call[-k:])  # the last optimizer step's calls (with steps=1, the first call's warm-up too)
+            steady = sorted(per_call[1:])[len(per_call[1:]) // 2] if len(per_call) > 1 else float("nan")
+            log(f"  {k * steps} calls ({steps} optimizer steps of {k} calls, {spc} scenes a call, 5 targets a "
+                f"scene): s per call " + ", ".join(f"{s:.3f}" for s in per_call) + f"; losses "
+                + ", ".join(f"{v:.4f}" for _, v in calls))
+            log(f"  train: {opt_s:.3f} s per optimizer step (the last), {k * spc / opt_s:.3f} scenes/s; after the first "
+                f"call {steady:.3f} s a call (median), {spc / steady:.3f} scenes/s; peak memory "
+                f"{peak:.2f} GiB (max_memory_allocated), main {run_s:.1f}s with the model's build and the "
+                f"checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 2**30:.2f} GiB), on {card}")
+            log(f"  launches in the run: {counts}")
+            if dev.type == "cuda":
+                check(counts.get("groupnorm", 0) > 0 and counts.get("attention", 0) > 0,
+                      "K1 or K2 launched no time in the train step")
+                check(counts.get("transformer_block", 0) == 0 and counts.get("crossview", 0) == 0,
+                      "the default step (\"never\") launched a site kernel")
+            del model, state, params
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            calls.clear()
+            model, state = cli.main(argv + ["--max-steps", "1"])
+            check(state.step == k * steps + 1 and len(calls) == 1 and math.isfinite(calls[0][1]),
+                  f"resume: at call {state.step}")
+            params = dict(model.named_parameters())
+            check(all(torch.equal(params[n], t) for n, t in frozen.items()), "a frozen parameter moved on resume")
+            log(f"  resumed from step {k * steps}: one call {calls[0][0]:.3f}s, loss {calls[0][1]:.4f}")
+        finally:
+            trainer.init_train_state, trainer.train_step = init0, step0
+        dataset = build_dataset(load_yaml(str(cfgp)))
+        if profile and dev.type == "cuda":
+            profile_train(model, state, tc, dataset, spc, profile)
+        gap = train_mode_gap(model, dataset, dev)
+    model.eval()
+    res = numerics_check.compare(model)
+    log(f"  apply_model_cfg kernels against MVDF_DISABLE_PALLAS=1 (tools/numerics_check.py, 8 targets): max|diff| "
+        f"{res['max_diff']:.5f}, mean|diff| {res['mean_diff']:.6f}, max|plain| {res['scale']:.3f}, tolerance "
+        f"{numerics_check.TOLERANCE:g} x max(1, max|plain|) = {res['bound']:.4f}; launches under the switch: "
+        f"{res['plain_launches']}")
+    check(res["finite"] and res["plain_launches"] == 0, "the switch left a kernel launch or a non-finite output")
+    check(res["ok"], f"kernels against their plain versions: max|diff| {res['max_diff']:.5f} > {res['bound']:.4f}")
+    if dev.type == "cuda":
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        function_grad_checks(dev)
+    return dict(counts=counts, gap=gap, numerics=res)
+
+
 def gn_timers() -> None:
     """K7's passes and K8's statistics pass at the VAE's large maps in bf16,
     by device_ms: the stats pass, the apply pass, both, and gn_fold_affine,
@@ -1723,6 +2080,13 @@ def profile_steps(model, prepared, steps: int, top: int = 18, what: str = "flags
             ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g, feed_prev_depth=feed_prev_depth)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    summarize_profile(prof, wall, steps, what, "step", top)
+
+
+def summarize_profile(prof, wall: float, steps: int, what: str, unit: str, top: int = 18) -> None:
+    """Log a torch.profiler session of `steps` units: device busy share of
+    `wall`, kernel launches, copy kernels, host-to-device copies and
+    synchronisations a unit, then the `top` kernels by device time."""
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
     averages = prof.key_averages()
     # kernel events only (device_type CUDA): an aten op's self device time
@@ -1735,13 +2099,14 @@ def profile_steps(model, prepared, steps: int, top: int = 18, what: str = "flags
     launches = sum(e.count for e in events)
     copies = [e for e in events if "copy" in e.key.lower()]
     h2d, syncs = _host_syncs(averages)
-    log(f"  profile ({what}) of {steps} steps: wall {wall / steps * 1e3:.2f} ms/step (profiled), device busy "
-        f"{busy / steps * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% of wall; {launches / steps:.1f} kernel "
-        f"launches/step; copy kernels {sum(dev_us(e) for e in copies) / steps / 1e3:.3f} ms/step in "
-        f"{sum(e.count for e in copies) / steps:.1f} launches/step; host-to-device copies {h2d / steps:.1f}/step, "
-        f"synchronisations {syncs / steps:.1f}/step (the trace's whole window, sampler set-up included)")
+    u = unit
+    log(f"  profile ({what}) of {steps} {u}s: wall {wall / steps * 1e3:.2f} ms/{u} (profiled), device busy "
+        f"{busy / steps * 1e3:.2f} ms/{u} = {100 * busy / wall:.1f}% of wall; {launches / steps:.1f} kernel "
+        f"launches/{u}; copy kernels {sum(dev_us(e) for e in copies) / steps / 1e3:.3f} ms/{u} in "
+        f"{sum(e.count for e in copies) / steps:.1f} launches/{u}; host-to-device copies {h2d / steps:.1f}/{u}, "
+        f"synchronisations {syncs / steps:.1f}/{u} (the trace's whole window)")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
-        log(f"    {dev_us(e) / steps / 1e3:9.3f} ms/step {e.count / steps:7.1f} calls/step  {e.key[:110]}")
+        log(f"    {dev_us(e) / steps / 1e3:9.3f} ms/{u} {e.count / steps:7.1f} calls/{u}  {e.key[:110]}")
 
 
 # K4's kernels by stage, from their names (csrc/crossview.cu, block.cu,
@@ -1887,9 +2252,12 @@ def main() -> int:
                     help="DDIM steps of the evaluation scene (50 is the paper's protocol)")
     ap.add_argument("--forms-steps", type=int, default=5,
                     help="DDIM steps of the request with the switched transformer-site forms on")
+    ap.add_argument("--train-steps", type=int, default=1,
+                    help="optimizer steps of the train phase (grad_accum_step calls each)")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
-                         "route (slice), on the evaluation scene (eval) and with the switched forms on (forms)")
+                         "route (slice), on the evaluation scene (eval) and with the switched forms on (forms), "
+                         "and STEPS train calls (train)")
     ap.add_argument("--profile-only", type=int, default=0, metavar="STEPS",
                     help="only build the kernels, read K4 and K4b by stage and against their plain versions, "
                          "and trace STEPS flagship and STEPS evaluation steps on the default route, then STEPS "
@@ -2000,6 +2368,11 @@ def main() -> int:
 
     with Phase("vae"):
         vae_counts = run_vae(card, model=model)
+
+    del model
+    torch.cuda.empty_cache()
+    with Phase("train"):
+        run_train(card, args.train_steps, profile=args.profile)
 
     with Phase("stages"):
         crossview_stage_checks(rows)

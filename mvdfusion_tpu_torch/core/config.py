@@ -2,8 +2,10 @@
 
 The same files drive both packages (configs/*.yaml, the reference's
 `target:` / `params:` layout). The model section flattens into one
-`ViewFusionConfig`; the dataset section names a loader by the reference's
-dotted target or a native name. PyYAML is imported where a file is read.
+`ViewFusionConfig`, the trainer section (with the model's finetune flags)
+into one `TrainConfig`; the dataset section names a loader by the
+reference's dotted target or a native name. PyYAML is imported where a file
+is read.
 """
 
 from __future__ import annotations
@@ -59,21 +61,21 @@ def build_dataset(cfg: dict):
 # ------------------------------------------------------------------- model
 def build_model_config(cfg: dict, dtype=torch.bfloat16) -> ViewFusionConfig:
     """Flatten the model section into a ViewFusionConfig. Raises on a
-    setting that changes inference and that the port lacks (the top-k view
-    window, the legacy pose embedding); the training-only keys (objective,
-    loss_type, drop_conditions, the finetune flags) wait for the trainer."""
+    setting the port lacks (the legacy pose embedding)."""
     mp = cfg["model"]["params"]
     va = mp.get("view_attn_config", {}).get("params", {})
     un = mp.get("unet_config", {}).get("params", {})
     dd = mp.get("ddpm_config", {}).get("params", {})
     vae = mp.get("vae_config", {}).get("params", {})
     ddcfg = vae.get("ddconfig", {})
-    if va.get("keep_top_k_views", False):
-        raise NotImplementedError("keep_top_k_views: true is not ported yet (GridAttn's top-k view window)")
     if not mp.get("embed_camera_pose", True):
-        raise NotImplementedError("embed_camera_pose: false (the legacy zero123 pose embedding) is not ported yet")
+        raise NotImplementedError("embed_camera_pose: false (the legacy zero123 pose embedding) is not ported yet "
+                                  "(ROADMAP Queue 1: checkpoint loading)")
     return ViewFusionConfig(
         z_scale_factor=mp.get("z_scale_factor", 0.18215),
+        drop_conditions=mp.get("drop_conditions", False),
+        objective=mp.get("objective", "noise"),
+        loss_type=mp.get("loss_type", "l2"),
         feed_prev_depth=mp.get("feed_prev_depth", False),
         timesteps=dd.get("timesteps", 1000),
         latent_size=va.get("input_size", 32),
@@ -82,6 +84,8 @@ def build_model_config(cfg: dict, dtype=torch.bfloat16) -> ViewFusionConfig:
         viewattn_heads=va.get("num_heads", 8),
         viewattn_mlp_ratio=va.get("mlp_ratio", 2.0),
         n_pts_per_ray=va.get("n_pts_per_ray", 1),
+        keep_top_k_views=va.get("keep_top_k_views", False),
+        top_k=va.get("top_k", 4),
         unet_in_channels=un.get("in_channels", 10),
         unet_out_channels=un.get("out_channels", 5),
         unet_model_channels=un.get("model_channels", 320),
@@ -96,4 +100,29 @@ def build_model_config(cfg: dict, dtype=torch.bfloat16) -> ViewFusionConfig:
         vae_ch_mult=tuple(ddcfg.get("ch_mult", (1, 2, 4, 4))),
         vae_num_res_blocks=ddcfg.get("num_res_blocks", 2),
         dtype=dtype,
+    )
+
+
+# ----------------------------------------------------------------- trainer
+def build_train_config(cfg: dict):
+    """The trainer section and the model's finetune flags as a TrainConfig
+    (the reference configs carry a misspelt `finteune_view_attn`: honoured
+    where `finetune_view_attn` is absent)."""
+    from mvdfusion_tpu_torch.pipeline.trainer import TrainConfig
+
+    mp = cfg["model"]["params"]
+    tr = cfg.get("trainer", {})
+    return TrainConfig(
+        lr=float(tr.get("lr", cfg["model"].get("base_learning_rate", 1e-4))),
+        grad_accum_step=int(tr.get("grad_accum_step", 1)),
+        grad_clip=float(tr.get("grad_clip", 0.0)),
+        skip_nonfinite=bool(tr.get("skip_nonfinite", False)),
+        lr_schedule=str(tr.get("lr_schedule", "constant")),
+        lr_decay_steps=int(tr.get("lr_decay_steps", 0)),
+        lr_alpha=float(tr.get("lr_alpha", 0.1)),
+        ema_decay=float(tr.get("ema_decay", 0.0)),
+        finetune_projection=mp.get("finetune_projection", True),
+        finetune_unet=mp.get("finetune_unet", False),
+        finetune_cross_attn=mp.get("finetune_cross_attn", True),
+        finetune_view_attn=mp.get("finetune_view_attn", mp.get("finteune_view_attn", True)),
     )

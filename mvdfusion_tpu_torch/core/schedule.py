@@ -1,7 +1,9 @@
 """Diffusion noise schedules (torch counterpart of mvdfusion_tpu/core/schedule.py).
 
 The SD linear-sqrt DDPM tables (fp64 math on the host, fp32 tables), the
-eta=1 DDIM sub-schedule with the +1 timestep offset, and one DDIM update.
+eta=1 DDIM sub-schedule with the +1 timestep offset, one DDIM update, and
+the training-time forward noising (`q_sample`) and its inverse
+(`predict_start_from_noise`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,27 @@ def make_ddpm_schedule(
         posterior_variance=_f32(post_var, device),
         posterior_log_variance_clipped=_f32(post_log_var, device),
     )
+
+
+def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """table[t] as (B, 1, 1, ...) for broadcasting over an ndim-dim tensor."""
+    vals = table[t]
+    return vals.reshape(vals.shape[0], *([1] * (ndim - 1)))
+
+
+def q_sample(sched: DDPMSchedule, x_start, t, noise):
+    """Forward noising x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, the noise
+    given explicitly."""
+    a = _bcast(sched.sqrt_alphas_cumprod, t, x_start.ndim)
+    s = _bcast(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+    return a * x_start + s * noise
+
+
+def predict_start_from_noise(sched: DDPMSchedule, x_noisy, eps, t):
+    """x0 = sqrt(1/abar) x_t - sqrt(1/abar - 1) eps."""
+    ra = _bcast(sched.sqrt_recip_alphas_cumprod, t, x_noisy.ndim)
+    rm = _bcast(sched.sqrt_recipm1_alphas_cumprod, t, x_noisy.ndim)
+    return ra * x_noisy - rm * eps
 
 
 class DDIMSchedule(NamedTuple):

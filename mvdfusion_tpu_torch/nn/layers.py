@@ -177,8 +177,15 @@ class TimmAttention(nn.Module):
         return self.proj(dot_attention(q, k, v, (C // self.heads) ** -0.5).reshape(B, N, C))
 
 
+def gelu_exact(y):
+    """The exact GELU rounded where jax.nn.gelu(approximate=False) rounds, op
+    by op in y's dtype: (0.5 y) * erfc(-y * sqrt(1/2)), sqrt(1/2) in that
+    dtype."""
+    return (0.5 * y) * torch.special.erfc(-y * torch.tensor(math.sqrt(0.5), dtype=y.dtype))
+
+
 class Mlp(nn.Module):
-    """timm Mlp: fc1 -> exact GELU -> fc2."""
+    """timm Mlp: fc1 -> exact GELU (gelu_exact) -> fc2."""
 
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
@@ -186,7 +193,7 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, out)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(gelu_exact(self.fc1(x)))
 
 
 def silu(x):

@@ -8,10 +8,15 @@ aligned_attn_* names), i.e. the torch keys of convert/mapping.py's
 unet_mapping. The transformer sites take the form of ops/block.py that the
 reference takes (block_route): by default K3 at the 32^2 and 16^2 sites and
 the module path at the C=1280 sites; under MVDF_BLOCK_SINGLE=1 K5 at 32^2,
-under MVDF_BLOCK_BIGC=1 K6 at the C=1280 sites with 64 <= N <= 256. On the
-card a site reads its weights prepared once (ops/block.py::
-prepared_site_weights, kept on the site's module until a parameter changes);
-on the CPU the plain versions read the parameters as they are.
+under MVDF_BLOCK_BIGC=1 K6 at the C=1280 sites with 64 <= N <= 256; every
+site on the module path under fuse_mode "never" (the default train step) or
+the kernel-off switch. On the card a site's kernels read its weights
+prepared once (ops/block.py::prepared_site_weights, kept on the site's
+module until a parameter changes; its gradient reaches the parameters
+through the plain version's backward); on the CPU the plain versions read
+the parameters as they are. `remat` recomputes each block's interior in the
+backward (torch.utils.checkpoint per ResBlock and site), keeping only the
+blocks' boundaries.
 The up-path skip joins are concatenations: the reference's split-skip form
 computes the same function piece by piece for the TPU's layouts.
 """
@@ -22,6 +27,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mvdfusion_tpu_torch.nn.layers import (
     Conv1x1,
@@ -90,10 +96,10 @@ def _attn2_contribution(block: BasicTransformerBlock, ctx):
     return block.attn2.to_out[0](block.attn2.to_v(ctx))
 
 
-def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int):
+def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int, fuse_mode: str):
     """The kernel form of a site with one transformer block and a 1-key
-    attn2 context, or None for the module path."""
-    if len(blocks) != 1 or not one_key:
+    attn2 context under fuse_mode "auto", or None for the module path."""
+    if fuse_mode == "never" or len(blocks) != 1 or not one_key:
         return None
     return block_route(B, N, C, heads, blocks[0].ff.net[2].in_features)
 
@@ -117,13 +123,16 @@ def _site_weights(p: tuple) -> BlockWeights:
 
 
 def _kernel_site(module, x, a2, params, dt, form):
-    """A site on its kernel form: x (B, H, W, C) -> (B, H, W, C)."""
+    """A site on its kernel form: x (B, H, W, C) -> (B, H, W, C). Where the
+    kernels read the prepared weights and a gradient is wanted, the
+    parameters go along as they are for the backward."""
     B, H, W, C = x.shape
+    prepared = None
     if _lib.reads_prepared(x):
-        w = prepared_site_weights(module, params, lambda: _site_weights(params), dt)
-    else:
-        w = _site_weights(params)
-    return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, module.heads, form).reshape(B, H, W, C)
+        prepared = prepared_site_weights(module, params, lambda: _site_weights(params), dt)
+    w = _site_weights(params) if prepared is None or _lib.needs_grad(x, a2, params) else prepared
+    return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, module.heads, form,
+                             prepared).reshape(B, H, W, C)
 
 
 class SpatialTransformer(nn.Module):
@@ -140,10 +149,10 @@ class SpatialTransformer(nn.Module):
         )
         self.proj_out = Conv1x1(inner, ch)
 
-    def forward(self, x, context):
+    def forward(self, x, context, fuse_mode: str = "auto"):
         B, H, W, C = x.shape
         blk = self.transformer_blocks
-        form = _site_form(blk, context.shape[1] == 1, B, H * W, C, self.heads)
+        form = _site_form(blk, context.shape[1] == 1, B, H * W, C, self.heads, fuse_mode)
         if form:
             a2 = _attn2_contribution(blk[0], context[:, 0])
             params = _site_params(self.norm, self.proj_in, self.proj_out, blk[0])
@@ -169,12 +178,12 @@ class ViewAlignedFeatureTransformer(nn.Module):
         )
         self.aligned_attn_proj_out = Linear(inner, ch)
 
-    def forward(self, x, volume):
+    def forward(self, x, volume, fuse_mode: str = "auto"):
         """x (B, H, W, C); volume (B, H, W, D, Cc)."""
         B, H, W, C = x.shape
         D, Cc = volume.shape[3], volume.shape[4]
         blk = self.aligned_attn_transformer_blocks
-        form = _site_form(blk, D == 1, B, H * W, C, self.heads)
+        form = _site_form(blk, D == 1, B, H * W, C, self.heads, fuse_mode)
         if form:
             a2 = _attn2_contribution(blk[0], volume.reshape(B, H * W, Cc))
             params = _site_params(self.aligned_attn_norm, self.aligned_attn_proj_in, self.aligned_attn_proj_out,
@@ -220,8 +229,8 @@ def volume_pyramid(volume: torch.Tensor, num_levels: int) -> list:
 
 
 class UNetModel(nn.Module):
-    """forward(x (B,H,W,Cin), t (B,), context (B,M,ctx), volume_levels) ->
-    (B, H, W, Cout) fp32."""
+    """forward(x (B,H,W,Cin), t (B,), context (B,M,ctx), volume_levels,
+    fuse_mode, remat) -> (B, H, W, Cout) fp32."""
 
     def __init__(
         self,
@@ -277,7 +286,7 @@ class UNetModel(nn.Module):
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.ModuleList([GroupNorm32(ch, act="silu"), nn.Identity(), Conv2d(ch, out_channels, 3, padding=1)])
 
-    def forward(self, x, t, context, volume_levels):
+    def forward(self, x, t, context, volume_levels, fuse_mode: str = "auto", remat: bool = False):
         dt = self.out[2].weight.dtype
         emb = self.time_embed[0](timestep_embedding(t, self.model_channels))
         emb = self.time_embed[2](silu(emb))
@@ -285,14 +294,19 @@ class UNetModel(nn.Module):
         context = context.to(dt)
         levels = {lv.shape[1]: lv.to(dt) for lv in volume_levels}
 
+        remat = remat and torch.is_grad_enabled()
+
+        def block(m, *args):
+            return checkpoint(m, *args, use_reentrant=False) if remat else m(*args)
+
         def run(layers, h):
             for m in layers:
                 if isinstance(m, ResBlock):
-                    h = m(h, emb)
+                    h = block(m, h, emb)
                 elif isinstance(m, SpatialTransformer):
-                    h = m(h, context)
+                    h = block(m, h, context, fuse_mode)
                 elif isinstance(m, ViewAlignedFeatureTransformer):
-                    h = m(h, levels[h.shape[1]])
+                    h = block(m, h, levels[h.shape[1]], fuse_mode)
                 else:
                     h = m(h)
             return h

@@ -9,6 +9,15 @@ view; build per-point tokens across V (gathered features + geometric
 embeddings); run the adaLN-Zero DiT across V, softmax-pool and project to a
 (B, H, W, D, out) frustum.
 
+Two paths compute it, as in the reference: K4 (ops/crossview.py, the
+gather + DiT + pool kernels) where its gate is open (V <= 16 views, maps of
+at most 8192 pixels, hid <= 512) and fuse_mode is "auto", and the general
+path (the reference's XLA branch, nn/viewattn.py:335-371) everywhere else:
+past the gate, with the top-k view window (keep_top_k_views: a static window
+of top_k + 1 views by index, wrapping), under fuse_mode "never" (every
+train step) or the kernel-off switch. The general path is differentiable
+PyTorch that rounds where the reference's modules round.
+
 The pre_layer_b Linear over the 723-wide concat is applied factorised: the
 feature-map parts are projected before the gather (they commute with the
 bilinear interpolation), the view-invariant parts form `b_acc`, and the
@@ -19,8 +28,6 @@ view_attn_efficient2.py (z_embedder.0, pre_layer_b.0, aggregation_transformer
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -30,7 +37,7 @@ from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_center, transfo
 from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
 from mvdfusion_tpu_torch.geometry.harmonics import harmonic_embed, harmonic_frequencies
 from mvdfusion_tpu_torch.geometry.rays import pixel_rays, plucker_coords, rays_to_points
-from mvdfusion_tpu_torch.nn.layers import Linear, Mlp, TimmAttention, silu
+from mvdfusion_tpu_torch.nn.layers import Linear, Mlp, TimmAttention, gelu_exact, silu
 from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.crossview import (
     AggregatorWeights,
@@ -39,6 +46,12 @@ from mvdfusion_tpu_torch.ops.crossview import (
     prepared_crossview_weights,
     should_fuse_crossview,
 )
+
+
+def _ln_plain(x, eps: float = 1e-6):
+    """Affine-free LayerNorm in fp32, cast back (the reference's
+    LayerNormFp32(use_scale_bias=False))."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype)
 
 
 class DiTBlock(nn.Module):
@@ -50,12 +63,26 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(hidden, int(hidden * mlp_ratio), hidden)
         self.adaLN_modulation = nn.ModuleList([nn.Identity(), Linear(hidden, 6 * hidden)])
 
+    def forward(self, x, c):
+        """x (N, V, C) tokens, c (1 or N, C) conditioning, both in the
+        weights' dtype."""
+        mod = self.adaLN_modulation[1](silu(c))
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = (m[:, None] for m in mod.chunk(6, dim=-1))
+        x = x + g_a * self.attn(_ln_plain(x) * (1 + sc_a) + sh_a)
+        return x + g_m * self.mlp(_ln_plain(x) * (1 + sc_m) + sh_m)
+
 
 class AggregationTransformer(nn.Module):
     def __init__(self, hidden: int, heads: int, num_layers: int = 3, mlp_ratio: float = 2.0):
         super().__init__()
         self.layer_list = nn.ModuleList([DiTBlock(hidden, heads, mlp_ratio) for _ in range(num_layers)])
         self.weight_layer = Linear(hidden, 1)
+
+    def forward(self, x, c):
+        """-> (tokens (N, V, C), pooling logits (N, V, 1))."""
+        for block in self.layer_list:
+            x = block(x, c)
+        return x, self.weight_layer(x)
 
 
 # reference hyperparameters (view_attn_efficient2.py): metric depth range and
@@ -74,10 +101,13 @@ class GridAttn(nn.Module):
         mlp_ratio: float = 2.0,
         num_layers: int = 3,
         n_pts_per_ray: int = 1,
+        keep_top_k_views: bool = False,
+        top_k: int = 4,
     ):
         super().__init__()
         self.hidden_size, self.output_dim, self.num_heads = hidden_size, output_dim, num_heads
         self.n_pts_per_ray = n_pts_per_ray
+        self.keep_top_k_views, self.top_k = keep_top_k_views, top_k
         hs = hidden_size
         # concat order: view feats | input feats | ref plucker | ref depth | query plucker | query depth | mask
         self.dims = (hs, hs, 90, 15, 90, 15, 1)
@@ -102,8 +132,7 @@ class GridAttn(nn.Module):
         sqrt(1/2), each product and the erfc in that dtype."""
         lin = self.z_embedder[0]
         dt = lin.weight.dtype
-        y = (a.to(dt).float() @ lin.weight.float().t()).to(dt) + lin.bias.to(dt)
-        return (0.5 * y) * torch.special.erfc(-y * torch.tensor(math.sqrt(0.5), dtype=dt))
+        return gelu_exact((a.to(dt).float() @ lin.weight.float().t()).to(dt) + lin.bias.to(dt))
 
     def _kernel_params(self) -> tuple:
         """Every parameter that _static_kernel_weights reads."""
@@ -174,6 +203,7 @@ class GridAttn(nn.Module):
         input_cameras: Cameras,
         jitter_noise,  # (B, H, W, D) unit normal
         overwrite_attn_depth=None,  # (B, H, W, 1): the sampler's previous pred_x0 depth
+        fuse_mode: str = "auto",  # "auto": K4 where its gate is open; "never": the general path
     ):
         B, H, W, _ = noisy_latents.shape
         D, V = self.n_pts_per_ray, B
@@ -213,11 +243,38 @@ class GridAttn(nn.Module):
             + self.pre_layer_b[0].bias.to(dt)
         )  # (1, N, hid)
 
-        if not should_fuse_crossview(V, H, W, self.hidden_size):
-            raise NotImplementedError(f"GridAttn at V={V}, {H}x{W}, hid={self.hidden_size} is not ported yet")
-        geo, agg = self.kernel_weights(t_embed[0], prepared=_lib.reads_prepared(noisy_latents))
-        frustum = crossview_aggregate(
-            -ndc_all[..., :2], pts_flat[0], centers, predict_mask, acc_b[0], view_feat_p, geo, agg,
-            self.num_heads, harmonic_frequencies(N_HARMONIC, OMEGA0),
-        )
+        if fuse_mode == "auto" and not self.keep_top_k_views and should_fuse_crossview(V, H, W, self.hidden_size):
+            prepared = _lib.reads_prepared(noisy_latents)
+            if prepared and _lib.needs_grad(t_embed, self._kernel_params()):
+                # the kernels read the prepared weights, the gradient reaches the parameters
+                kernel_w = self.kernel_weights(t_embed[0], prepared=True)
+                geo, agg = self.kernel_weights(t_embed[0])
+            else:
+                geo, agg = kernel_w = self.kernel_weights(t_embed[0], prepared=prepared)
+            frustum = crossview_aggregate(
+                -ndc_all[..., :2], pts_flat[0], centers, predict_mask, acc_b[0], view_feat_p, geo, agg,
+                self.num_heads, harmonic_frequencies(N_HARMONIC, OMEGA0), prepared=kernel_w,
+            )
+            return frustum.reshape(B, H, W, D, self.output_dim)
+
+        # 5. the general path: per-view geometry, the token sum, the DiT across views, the softmax pool
+        ref_dir = pts_flat[0][None] - centers[:, None]  # (V, N, 3)
+        ref_depth = torch.linalg.norm(ref_dir, dim=-1, keepdim=True)
+        ref_dir = ref_dir / torch.clamp(ref_depth, min=1e-12)
+        mask_tok = predict_mask[:, None, None].to(dt).expand(V, N, 1)
+        acc_v = (
+            grid_sample(view_feat_p, -ndc_all[..., :2])
+            + self._part(2, hembed(plucker_coords(centers[:, None], ref_dir)))
+            + self._part(3, hembed(ref_depth))
+            + self._part(6, mask_tok)
+        )  # (V, N, hid)
+        if self.keep_top_k_views:
+            # a static window of top_k + 1 views by index, wrapping; tokens are view-major
+            offsets = torch.arange(-(self.top_k // 2), self.top_k // 2 + 1, device=acc_v.device)
+            idx = (torch.arange(N, device=acc_v.device) // (H * W * D))[None, :] + offsets[:, None]
+            acc_v = torch.gather(acc_v, 0, (idx % V)[:, :, None].expand(-1, -1, acc_v.shape[-1]))
+        tokens = gelu_exact((acc_v + acc_b).transpose(0, 1))  # (N, V', hid)
+        out, w = self.aggregation_transformer(tokens, t_embed[:1].to(dt))
+        w = torch.softmax(w.float(), dim=-2).to(dt)
+        frustum = self.final_layer_b((out * w).sum(dim=-2))
         return frustum.reshape(B, H, W, D, self.output_dim)

@@ -7,10 +7,18 @@ checkpoint (unet_model.unet_model.*, vae.*, clip_image_encoder.model.visual.*,
 view_attn.*, cc_projection.{0,2,4}, time_embed.{0,2}).
 
   prepare_batch    VAE encode, depth channels, relative cameras, CLIP + pose
+  apply_model      GridAttn -> cc_projection -> UNet, one conditional pass
+                   with the training-time condition dropout
   apply_model_cfg  GridAttn -> cc_projection -> UNet over one 2B batch (cond
                    and null conditioning together), then CFG mixing
+  p_losses         the training loss: shared-t L2 on the noise or x_start
   decode_latents   VAE decode to [0, 1] images (decode_latents_chunked: in
                    batches of at most 8 views)
+
+`cfg.fuse_mode` ("auto" or "never") picks the UNet sites' and GridAttn's
+kernels or their module paths; pipeline/trainer.py runs the train step
+under its own (`TrainConfig.train_fuse_mode`, "never" by default).
+Randomness comes from a torch.Generator or is given explicitly.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn as nn
 
-from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule
+from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule, q_sample
 from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_slice, make_cameras, relative_cameras
 from mvdfusion_tpu_torch.nn.clip import FrozenCLIPImageEmbedder
 from mvdfusion_tpu_torch.nn.layers import GroupNorm32, LayerNormFp32, Linear, silu, timestep_embedding
@@ -37,7 +45,14 @@ class ViewFusionConfig:
     """Static model hyperparameters (configs/mvd_gso.yaml `model.params`)."""
 
     z_scale_factor: float = 0.18215
-    # feed each step's pred_x0 depth to the next step's GridAttn (sampler)
+    # training: per-sample condition dropout in four disjoint 5% bands
+    # (apply_model), the target of the L2 loss ("noise" or "x_start"), and
+    # the loss (the reference has only "l2")
+    drop_conditions: bool = False
+    objective: str = "noise"
+    loss_type: str = "l2"
+    # feed each step's pred_x0 depth to the next step's GridAttn (sampler);
+    # in training, the input latent's depth channel
     feed_prev_depth: bool = False
     timesteps: int = 1000
     linear_start: float = 0.00085
@@ -49,6 +64,9 @@ class ViewFusionConfig:
     viewattn_heads: int = 8
     viewattn_mlp_ratio: float = 2.0
     n_pts_per_ray: int = 1
+    # GridAttn's static window of top_k + 1 views by index (general path)
+    keep_top_k_views: bool = False
+    top_k: int = 4
     unet_in_channels: int = 10
     unet_out_channels: int = 5
     unet_model_channels: int = 320
@@ -67,6 +85,13 @@ class ViewFusionConfig:
     clip_heads: int = 16
     # compute dtype of the heavy towers (see ViewFusion.cast_for_inference)
     dtype: Any = torch.bfloat16
+    # the UNet sites' and GridAttn's kernels where their gates are open
+    # ("auto") or their module paths ("never")
+    fuse_mode: str = "auto"
+    # zero GridAttn's frustum before the UNet (the cross-view ablation)
+    ablate_frustum: bool = False
+    # recompute each UNet block's interior in the backward
+    unet_remat: bool = False
 
     def tiny(self) -> "ViewFusionConfig":
         """The JAX package's scaled-down test config."""
@@ -118,7 +143,7 @@ class ViewFusion(nn.Module):
         self.view_attn = GridAttn(
             in_channels=5, hidden_size=c.viewattn_hidden, output_dim=c.context_dim,
             num_heads=c.viewattn_heads, mlp_ratio=c.viewattn_mlp_ratio, num_layers=c.viewattn_layers,
-            n_pts_per_ray=c.n_pts_per_ray,
+            n_pts_per_ray=c.n_pts_per_ray, keep_top_k_views=c.keep_top_k_views, top_k=c.top_k,
         )
         d = c.context_dim
         # [clip | 28-dim pose embed] -> context; first layer eye/zero initialised
@@ -145,17 +170,22 @@ class ViewFusion(nn.Module):
             self._sched[key] = make_ddpm_schedule(c.timesteps, c.linear_start, c.linear_end, device=device)
         return self._sched[key]
 
-    def cast_for_inference(self):
-        """Cast the towers' weights to cfg.dtype once. GroupNorm and LayerNorm
-        params, the time-embed MLP and cc_projection stay fp32, as they run in
-        fp32 in the reference."""
+    def compute_dtypes(self) -> dict:
+        """Each parameter's compute dtype, by state-dict name: cfg.dtype for
+        the towers' weights; fp32 for the GroupNorm and LayerNorm params, the
+        time-embed MLP and cc_projection, as they run in fp32 in the
+        reference."""
         keep = {id(p) for p in self.time_embed.parameters()} | {id(p) for p in self.cc_projection.parameters()}
         for m in self.modules():
             if isinstance(m, (GroupNorm32, LayerNormFp32)):
                 keep |= {id(p) for p in m.parameters(recurse=False)}
-        for p in self.parameters():
-            if id(p) not in keep:
-                p.data = p.data.to(self.cfg.dtype)
+        return {n: torch.float32 if id(p) in keep else self.cfg.dtype for n, p in self.named_parameters()}
+
+    def cast_for_inference(self):
+        """Cast every parameter to its compute dtype (compute_dtypes) once."""
+        dts = self.compute_dtypes()
+        for n, p in self.named_parameters():
+            p.data = p.data.to(dts[n])
         return self
 
     # ------------------------------------------------------------- VAE / CLIP
@@ -222,8 +252,42 @@ class ViewFusion(nn.Module):
         xc = input_latents.expand(B, *input_latents.shape[1:])
         xc = torch.cat([xc[..., :4] / self.cfg.z_scale_factor, xc[..., 4:]], dim=-1)
         x = torch.cat([noisy_latents, xc], dim=-1)
-        levels = volume_pyramid(frustum.to(self.unet.out[2].weight.dtype), len(self.cfg.unet_channel_mult))
+        levels = volume_pyramid(frustum.to(self.cfg.dtype), len(self.cfg.unet_channel_mult))
         return x, levels
+
+    def _frustum(self, noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed, jitter_noise,
+                 prev_depth):
+        B = noisy_latents.shape[0]
+        frustum = self.view_attn(
+            noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
+            self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
+            overwrite_attn_depth=prev_depth, fuse_mode=self.cfg.fuse_mode,
+        )
+        return torch.zeros_like(frustum) if self.cfg.ablate_frustum else frustum
+
+    def _unet(self, x, t, ctx, levels):
+        return self.unet(x, t, ctx, levels, fuse_mode=self.cfg.fuse_mode, remat=self.cfg.unet_remat)
+
+    def apply_model(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
+                    jitter_noise, prev_depth=None, drop=None):
+        """One conditional pass (training, or CFG 1). `drop` (B,), a uniform
+        draw in [0, 1), applies the per-sample condition dropout where
+        cfg.drop_conditions: four disjoint 5% bands drop the CLIP context
+        (0.15, 0.2], the frustum (0.1, 0.15], the concat latents (0.05, 0.1]
+        and all three [0, 0.05]."""
+        t_embed = self.embed_time(t)
+        frustum = self._frustum(noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed,
+                                jitter_noise, prev_depth)
+        clip_embed = self.cc_proj(clip_v_embed)
+        x, levels = self._unet_inputs(noisy_latents, input_latents, frustum)
+        if drop is not None and self.cfg.drop_conditions:
+            drop_all = drop <= 0.05
+            keep = lambda lo, hi: 1.0 - (((drop > lo) & (drop <= hi)) | drop_all).float()
+            clip_embed = clip_embed * keep(0.15, 0.2)[:, None, None]
+            kv = keep(0.1, 0.15)[:, None, None, None, None]
+            levels = [v * kv.to(v.dtype) for v in levels]
+            x = torch.cat([x[..., :5], x[..., 5:] * keep(0.05, 0.1)[:, None, None, None]], dim=-1)
+        return self._unet(x, t, clip_embed, levels)
 
     def apply_model_cfg(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
                         cfg_scale, jitter_noise, prev_depth=None):
@@ -233,20 +297,58 @@ class ViewFusion(nn.Module):
         estimate (feed_prev_depth)."""
         B = noisy_latents.shape[0]
         t_embed = self.embed_time(t)
-        frustum = self.view_attn(
-            noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
-            self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
-            overwrite_attn_depth=prev_depth,
-        )
+        frustum = self._frustum(noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed,
+                                jitter_noise, prev_depth)
         clip_embed = self.cc_proj(clip_v_embed)
         x_cond, levels = self._unet_inputs(noisy_latents, input_latents, frustum)
         x_null = torch.cat([noisy_latents, torch.zeros_like(x_cond[..., 5:])], dim=-1)
         x2 = torch.cat([x_cond, x_null], dim=0)
         ctx2 = torch.cat([clip_embed, torch.zeros_like(clip_embed)], dim=0)
         levels2 = [torch.cat([v, torch.zeros_like(v)], dim=0) for v in levels]
-        pred = self.unet(x2, torch.cat([t, t]), ctx2, levels2)
+        pred = self._unet(x2, torch.cat([t, t]), ctx2, levels2)
         s, s_uc = pred[:B], pred[B:]
         return s_uc + cfg_scale * (s - s_uc)
+
+    # -------------------------------------------------------------- training
+    def loss_draws(self, B: int, device, generator=None) -> dict:
+        """One p_losses call's random draws from `generator`: the shared
+        timestep t (B,), the noise (B, ls, ls, 5), GridAttn's jitter (B, ls,
+        ls, D) and the condition-dropout draw (B,)."""
+        ls, D = self.cfg.latent_size, self.cfg.n_pts_per_ray
+        t0 = torch.randint(0, self.cfg.timesteps, (1,), generator=generator, device=device)
+        return dict(t=t0.expand(B), noise=torch.randn(B, ls, ls, 5, generator=generator, device=device),
+                    jitter_noise=torch.randn(B, ls, ls, D, generator=generator, device=device),
+                    drop=torch.rand(B, generator=generator, device=device))
+
+    def p_losses(self, images, R, T, f, c, input_idx, target_idx, depths=None, feed_prev_depth=None,
+                 generator=None, t=None, noise=None, jitter_noise=None, drop=None):
+        """The shared-t L2 loss on cfg.objective for one scene (images (S, H,
+        W, 3) in [0, 1], cameras (S, ...), input_idx (1,), target_idx (B,)).
+        The encodes run without a gradient (VAE and CLIP are frozen). t,
+        noise, jitter_noise and drop (loss_draws' keys) are drawn from
+        `generator` where not given. feed_prev_depth (default cfg's) feeds
+        GridAttn the input latent's depth channel instead of its estimate."""
+        if self.cfg.loss_type != "l2":
+            raise NotImplementedError(f"loss_type {self.cfg.loss_type!r}: only 'l2' exists, as in the reference")
+        if self.cfg.objective not in ("noise", "x_start"):
+            raise NotImplementedError(f"objective {self.cfg.objective!r}: 'noise' or 'x_start', as in the reference")
+        if feed_prev_depth is None:
+            feed_prev_depth = self.cfg.feed_prev_depth
+        with torch.no_grad():
+            batch_latents, batch_cams, input_latents, input_cams, clip_v = self.prepare_batch(
+                images, R, T, f, c, input_idx, target_idx, depths=depths)
+        B = batch_latents.shape[0]
+        given = dict(t=t, noise=noise, jitter_noise=jitter_noise, drop=drop)
+        if any(v is None for v in given.values()):
+            draws = self.loss_draws(B, batch_latents.device, generator)
+            given = {k: draws[k] if v is None else v for k, v in given.items()}
+        t, noise = given["t"], given["noise"]
+        noisy = q_sample(self.sched(batch_latents.device), batch_latents, t, noise)
+        prev_depth = input_latents[..., 4:5].expand_as(noisy[..., 4:5]) if feed_prev_depth else None
+        pred = self.apply_model(noisy, batch_cams, input_latents, input_cams, clip_v, t, given["jitter_noise"],
+                                prev_depth=prev_depth, drop=given["drop"])
+        target = noise if self.cfg.objective == "noise" else batch_latents
+        return torch.mean((target - pred) ** 2)
 
 
 def randomize_(model: nn.Module, seed: int = 0) -> nn.Module:

@@ -9,6 +9,17 @@ rebuilt when any source is newer than it. Every entry point takes raw device
 pointers and the current CUDA stream and returns ``cudaGetLastError()``;
 :func:`call` raises on a non-zero code.
 
+Every entry point launches its kernel on a CUDA tensor and takes its plain
+version on a CPU tensor or under the kernel-off switch (`kernel_route`):
+``MVDF_DISABLE_PALLAS`` set to any non-empty value, read when called, as the
+reference reads it, or `plain_versions()` around a call. An entry point with
+a gradient runs its kernel inside `with_plain_backward`, a
+torch.autograd.Function whose backward is its plain version's autograd,
+recomputed on the saved inputs (the reference's custom VJPs); a launcher
+reached with an input that needs a gradient outside one raises
+(`no_graph`), so a kernel never returns a tensor that silently drops the
+graph.
+
 ``LAUNCHES`` counts, per wrapper, the launches of its kernel; a wrapper adds
 one exactly where it launches and nowhere else. ``GEMM_SHAPES`` breaks the
 GEMM's launches down by route and shape (ops/block.py::gemm), and
@@ -20,6 +31,7 @@ LayerNorm's by (M, C) (ops/block.py::layernorm).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -200,11 +212,102 @@ def gn_max_clusters(k: int, threads: int, smem: int, resident: bool, dtype_code:
     return n.value
 
 
+SWITCH = "MVDF_DISABLE_PALLAS"
+
+
+def switched_off() -> bool:
+    """Whether the kernel-off switch is set: MVDF_DISABLE_PALLAS non-empty,
+    read when called (the reference's test, ops/attention.py:301)."""
+    return bool(os.environ.get(SWITCH))
+
+
+def kernel_route(device_type: str, off: bool | None = None) -> bool:
+    """Whether an entry point launches its kernel for a tensor on
+    `device_type` with the switch `off` (default: as set now): on "cuda"
+    unless switched off; else it takes its plain version."""
+    return device_type == "cuda" and not (switched_off() if off is None else off)
+
+
+def launches(t) -> bool:
+    """kernel_route for tensor `t`'s device and the switch as set now."""
+    return kernel_route(t.device.type)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Set the kernel-off switch for the calls inside (every route takes its
+    plain version); restores the variable's previous state on exit."""
+    old = os.environ.get(SWITCH)
+    os.environ[SWITCH] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(SWITCH, None)
+        else:
+            os.environ[SWITCH] = old
+
+
 def reads_prepared(t) -> bool:
     """Whether the model's kernel sites read their cached prepared weights
-    for activations `t`: on the card (the plain versions on the CPU read the
-    parameters as they are)."""
-    return t.is_cuda
+    for activations `t`: where the kernels launch (the plain versions read
+    the parameters as they are)."""
+    return launches(t)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an operation on any of `tensors` (None and
+    nested lists or tuples allowed)."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in tensors:
+        if isinstance(t, (list, tuple)):
+            if needs_grad(*t):
+                return True
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
+def no_graph(name: str, *tensors) -> None:
+    """Raise if autograd would record an operation on one of `tensors`: a
+    kernel's output has no graph, so a launcher runs only under no_grad, on
+    inputs that need no gradient, or inside with_plain_backward's forward."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name}: a kernel launch drops the autograd graph; call its entry point (a "
+                           "torch.autograd.Function), or launch under torch.no_grad()")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """forward: launch(*tensors); backward: the autograd of plain(*tensors),
+    recomputed on the saved inputs (the reference's custom VJPs, whose
+    backward is the vjp of the kernel's plain twin)."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        wants = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) if t is not None else None for t, w in zip(saved, wants)]
+            out = ctx.plain(*ins)
+            leaves = [t for t, w in zip(ins, wants) if w]
+            got = iter(torch.autograd.grad(out, leaves, grad, allow_unused=True))
+        return (None, None, *(next(got) if w else None for w in wants))
+
+
+def with_plain_backward(launch, plain, *tensors):
+    """launch(*tensors), one tensor; where autograd records on `tensors`, as
+    a torch.autograd.Function whose backward is plain's autograd on the saved
+    inputs. `launch` and `plain` take the tensors in order (None allowed)."""
+    if not needs_grad(*tensors):
+        return launch(*tensors)
+    return _PlainBackward.apply(launch, plain, *tensors)
 
 
 def cached(owner, attr: str, params, dtype, build):

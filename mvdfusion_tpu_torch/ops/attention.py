@@ -44,7 +44,11 @@ def attention_mode(dh: int) -> int:
 
 def should_fuse_attention(q, k) -> bool:
     """The reference's gate (ops/attention.py::should_fuse): the large-token
-    sites (CLIP's 257 tokens; the VAE mid-attention at batch 1)."""
+    sites (CLIP's 257 tokens; the VAE mid-attention at batch 1, the UNet's
+    32^2 and 16^2 self-attention on the module path); closed under the
+    kernel-off switch."""
+    if _lib.switched_off():
+        return False
     Nq, Nk, dh = q.shape[1], k.shape[1], q.shape[-1]
     if Nq < 256 or Nk < 128:
         return False
@@ -90,6 +94,7 @@ def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None):
     one buffer; `out` (B, Nq, H, dh) contiguous is allocated if not given.
     `mode` (default attention_mode(dh)) sets the tensor-core tile's
     rounding; the fp32 loop keeps its probabilities in fp32."""
+    _lib.no_graph("launch_attention", q, k, v)
     B, Nq, H, dh = q.shape
     Nk = k.shape[1]
     mode = attention_mode(dh) if mode is None else mode
@@ -112,10 +117,11 @@ def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None):
 
 
 def fused_attention(q, k, v, scale: float):
-    """(B, Nq, H, dh) attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if not q.is_cuda:
+    """(B, Nq, H, dh) attention: the CUDA kernel where _lib.launches (its
+    gradient the plain version's), else the plain version."""
+    if not _lib.launches(q):
         return attention_plain(q, k, v, scale)
-    out = launch_attention(q, k, v, scale)
+    out = _lib.with_plain_backward(lambda q, k, v: launch_attention(q, k, v, scale),
+                                   lambda q, k, v: attention_plain(q, k, v, scale), q, k, v)
     _lib.LAUNCHES["attention"] += 1
     return out

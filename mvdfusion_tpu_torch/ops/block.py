@@ -102,7 +102,9 @@ def single_kernel_weight_bytes() -> int:
 def should_fuse_block(C: int, N: int, heads: int) -> bool:
     """The reference's gate (ops/block.py::should_fuse_block): the 32^2 C=320
     and 16^2 C=640 sites, and under MVDF_BLOCK_BIGC=1 (read when called) the
-    C=1280 sites with 64 <= N <= 256."""
+    C=1280 sites with 64 <= N <= 256; closed under the kernel-off switch."""
+    if _lib.switched_off():
+        return False
     if C % heads or (C // heads) % 8 or C % _GN_GROUPS:
         return False
     if C > _BIG_C_MIN:
@@ -145,6 +147,7 @@ def layernorm(x, weight=None, bias=None, eps: float = _LN_EPS):
     bf16 or fp32, output in x's dtype: 16-byte rows, fp32 statistics in the
     reference's form (E[x^2] - mean^2 clamped at 0, as _ln_plain). Counts
     under "layernorm", and by (M, C) in _lib.LN_SHAPES."""
+    _lib.no_graph("layernorm", x, weight, bias)
     C = x.shape[-1]
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -256,10 +259,12 @@ def gemm(a, w, bias=None, *, out_dtype=None, res1=None, res2=None, res2_div: int
     + res2[row // res2_div], computed in fp32 and rounded once; with `steps`
     rounded to the output type after the bias, after each residual and at
     GEGLU's factors, as the TPU site kernels' bf16 operations round. `out`
-    may alias `res1` (an in-place residual update)."""
-    if not a.is_cuda:
+    may alias `res1` (an in-place residual update). Under the kernel-off
+    switch, gemm_plain."""
+    if not _lib.launches(a):
         return gemm_plain(a, w, bias, out_dtype=out_dtype, res1=res1, res2=res2, res2_div=res2_div, gate=gate,
                           act=act, steps=steps, out=out)
+    _lib.no_graph("gemm", a, w, bias, res1, res2, gate)
     M, K = a.shape
     N = w.shape[0]
     if w.shape[1] != K or w.dtype != a.dtype:
@@ -387,6 +392,7 @@ def transformer_block_big_plain(x_in, attn2_add, w: BlockWeights, heads: int):
 def _operands(x_in, attn2_add, w: BlockWeights):
     """x and attn2 contiguous in x's dtype, the res2 row divisor of attn2, and
     the weights prepared for that dtype (as they come if already prepared)."""
+    _lib.no_graph("transformer site", x_in, attn2_add, *w)
     B, N, C = x_in.shape
     dt = x_in.dtype
     if tuple(attn2_add.shape) not in ((B, C), (B, N, C)):
@@ -610,6 +616,7 @@ def launch_big_attention(ln1, qkv_w, heads: int, consumers: int | None = None):
     bigattn_kernel as big_attention_route says (`consumers`: the sm90
     tile's warpgroups a block, by default big_attention_consumers'). Counts
     under "big_attention"."""
+    _lib.no_graph("launch_big_attention", ln1, qkv_w)
     B, N, C = ln1.shape
     if qkv_w.dtype != ln1.dtype or tuple(qkv_w.shape) != (3 * C, C):
         raise ValueError(f"qkv weights {tuple(qkv_w.shape)} {qkv_w.dtype} for ln1 {tuple(ln1.shape)} {ln1.dtype}")
@@ -654,13 +661,18 @@ _FORMS = {
 }
 
 
-def transformer_block(x_in, attn2_add, w: BlockWeights, heads: int, form: str):
-    """One transformer site in `form` (block_route): its CUDA kernels for CUDA
-    tensors, its plain version for CPU tensors. `w` as the parameters are
-    (BlockWeights) or prepared (PreparedSite)."""
+def transformer_block(x_in, attn2_add, w: BlockWeights, heads: int, form: str, prepared: PreparedSite | None = None):
+    """One transformer site in `form` (block_route): its CUDA kernels where
+    _lib.launches, else its plain version. `w` as the parameters are
+    (BlockWeights, the gradient's path to them) or prepared (PreparedSite);
+    the kernels read `prepared` where given, else `w`. The gradient is the
+    plain version's on `w`."""
     plain, launch, counter = _FORMS[form]
-    if not x_in.is_cuda:
-        return plain(x_in, attn2_add, unprepared_site_weights(w) if isinstance(w, PreparedSite) else w, heads)
-    out = launch(x_in, attn2_add, w, heads)
+    unprep = lambda t: unprepared_site_weights(PreparedSite(*t)) if isinstance(w, PreparedSite) else BlockWeights(*t)
+    if not _lib.launches(x_in):
+        return plain(x_in, attn2_add, unprep(w), heads)
+    kw = w if prepared is None else prepared
+    out = _lib.with_plain_backward(lambda x, a2, *_: launch(x, a2, kw, heads),
+                                   lambda x, a2, *t: plain(x, a2, unprep(t), heads), x_in, attn2_add, *w)
     _lib.LAUNCHES[counter] += 1
     return out

@@ -39,8 +39,9 @@ _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 def should_fuse_conv3x3(shape, groups: int = 32) -> bool:
     """The reference's gate (ops/conv3x3.py::should_fuse_conv3x3): off unless
     MVDF_CONV3X3=1 (read when called); then C a multiple of 128 and of
-    `groups`, W a multiple of 8, H*W >= 4096 and H >= 2."""
-    if not os.environ.get("MVDF_CONV3X3"):
+    `groups`, W a multiple of 8, H*W >= 4096 and H >= 2; closed under the
+    kernel-off switch."""
+    if not os.environ.get("MVDF_CONV3X3") or _lib.switched_off():
         return False
     B, H, W, C = shape
     if C % 128 or C % groups or W % 8:
@@ -63,9 +64,10 @@ def launch_gn_fold_affine(x_flat, scale, bias, groups: int, eps: float):
 
 
 def gn_fold_affine(x_flat, scale, bias, groups: int, eps: float):
-    """The folded GroupNorm affine of (B, N, C) x_flat: the stats kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
-    if not x_flat.is_cuda:
+    """The folded GroupNorm affine of (B, N, C) x_flat: the stats kernel where
+    _lib.launches, else the plain version. It has no gradient (nor has the
+    reference's): on the kernel route an input that needs one raises."""
+    if not _lib.launches(x_flat):
         return gn_fold_affine_plain(x_flat, scale, bias, groups, eps)
     out = launch_gn_fold_affine(x_flat, scale, bias, groups, eps)
     _lib.LAUNCHES["gn_fold_affine"] += 1
@@ -113,6 +115,7 @@ def packed_weight(w, dtype):
 def launch_conv3x3(x, a, b, w9, bias, row, res=None, act: str = "silu"):
     """Launch csrc/conv3x3.cu on CUDA tensors, w9 the packed (9*Cin, Cout)
     weight in x's dtype (no counting)."""
+    _lib.no_graph("launch_conv3x3", x, a, b, w9, bias, row, res)
     B, H, W, Cin = x.shape
     Cout = w9.shape[1]
     if tuple(w9.shape) != (9 * Cin, Cout) or w9.dtype != x.dtype:
@@ -139,10 +142,12 @@ def launch_conv3x3(x, a, b, w9, bias, row, res=None, act: str = "silu"):
 
 def gn_silu_conv3x3(x, a, b, w, bias, row, res=None, act: str = "silu"):
     """conv3x3(silu(x*a + b)) + bias + row[b] (+ res), NHWC, w the conv's
-    (Cout, Cin, 3, 3) parameter: the kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    if not x.is_cuda:
+    (Cout, Cin, 3, 3) parameter: the kernel where _lib.launches (its
+    gradient the plain version's), else the plain version."""
+    if not _lib.launches(x):
         return conv3x3_plain(x, a, b, w, bias, row, res, act)
-    y = launch_conv3x3(x, a, b, packed_weight(w, x.dtype), bias, row, res, act)
+    w9 = packed_weight(w, x.dtype)
+    y = _lib.with_plain_backward(lambda x, a, b, _, bias, row, res: launch_conv3x3(x, a, b, w9, bias, row, res, act),
+                                 lambda *t: conv3x3_plain(*t, act), x, a, b, w, bias, row, res)
     _lib.LAUNCHES["conv3x3"] += 1
     return y

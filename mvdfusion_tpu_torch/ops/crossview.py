@@ -82,8 +82,11 @@ class GeoWeights(NamedTuple):
 
 
 def should_fuse_crossview(V: int, H: int, W: int, hid: int) -> bool:
-    """The reference's gate (ops/crossview.py::should_fuse_crossview; the
-    top-k view window it also excludes is not ported)."""
+    """The reference's gate (ops/crossview.py::should_fuse_crossview; its
+    caller, nn/viewattn.py, leaves the top-k view window on the general
+    path); closed under the kernel-off switch."""
+    if _lib.switched_off():
+        return False
     return V <= 16 and H * W <= 8192 and hid <= 512
 
 
@@ -347,6 +350,7 @@ def launch_gather(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, freqs: 
     stream (N * V, hid) (gather_stream_plain's), "tokens" the two-phase
     form's phase-1 tokens (N, V, hid) in maps_p's dtype (the transpose of
     gather_tokens_plain's, rounded). Counts under cv_gather_<route>."""
+    _lib.no_graph("launch_gather", xy, pts, centers, mask, b_acc, maps_p, kg.kall, kg.kmask)
     V, N, _ = xy.shape
     _, H, W_, hid = maps_p.shape
     dt = maps_p.dtype
@@ -373,6 +377,7 @@ def launch_gather_tokens(xy, pts, centers, mask, maps_p, kg: GeoWeights, freqs: 
 def dit_layernorm(x, scale, shift, dt):
     """csrc/crossview.cu's DiT LayerNorm: LN(x) * (1 + scale) + shift over
     the fp32 stream x (M, hid), eps 1e-6, out in dt."""
+    _lib.no_graph("dit_layernorm", x, scale, shift)
     M, C = x.shape
     y = torch.empty(M, C, dtype=dt, device=x.device)
     _lib.call("mvdf_cv_layernorm", x, scale.float().contiguous(), shift.float().contiguous(), y, M, C,
@@ -386,6 +391,7 @@ def view_attention(h, qkv_w, qkv_b, V: int, heads: int, route: str | None = None
     (pack_qkv_heads). `route`: attention_route's choice, or "standalone" to
     take it for a bf16 comparison. The fused route never writes qkv to
     device memory."""
+    _lib.no_graph("view_attention", h, qkv_w, qkv_b)
     M, K = h.shape
     hid = qkv_w.shape[0] // 3
     dh = hid // heads
@@ -421,6 +427,7 @@ def _launch_dit_pool(x, N: int, V: int, w: PreparedAggregator, heads: int, dt):
 def launch_pool(x, N: int, V: int, wl_w, wl_b, dt):
     """The pool kernel: (N, hid) in dt, sum over each point's V rows of x
     weighted by softmax_v(dt(x) . wl_w + wl_b)."""
+    _lib.no_graph("launch_pool", x, wl_w, wl_b)
     hid = x.shape[-1]
     pooled = torch.empty(N, hid, dtype=dt, device=x.device)
     _lib.call("mvdf_cv_pool", x, wl_w.reshape(-1), wl_b.reshape(-1), pooled, N, V, hid, _lib.dtype_code(dt))
@@ -447,20 +454,44 @@ def launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWei
     return _launch_dit_pool(x, xy.shape[1], xy.shape[0], w, heads, maps_p.dtype)
 
 
+def _flat_weights(kg: GeoWeights, w: AggregatorWeights) -> list:
+    """kg's and w's tensors in one list (the lists of w's per-layer weights
+    spread out), the inverse of _unflat_weights."""
+    out = [kg.kall, kg.kmask]
+    for f in AggregatorWeights._fields[:-1]:
+        v = getattr(w, f)
+        out += list(v) if isinstance(v, (list, tuple)) else [v]
+    return out
+
+
+def _unflat_weights(t, L: int, qkv_heads: int):
+    """(GeoWeights, AggregatorWeights) from _flat_weights' list, L layers."""
+    t = list(t)
+    kg, t = GeoWeights(t[0], t[1]), t[2:]
+    per_layer = {f: [t.pop(0) for _ in range(L)] for f in AggregatorWeights._fields[:8]}
+    mods, wl_w, wl_b, fin_w, fin_b = t
+    return kg, AggregatorWeights(**per_layer, mods=mods, wl_w=wl_w, wl_b=wl_b, fin_w=fin_w, fin_b=fin_b,
+                                 qkv_heads=qkv_heads)
+
+
 def crossview_aggregate(xy, pts, centers, mask, b_acc, maps_p, kg: GeoWeights, w: AggregatorWeights,
-                        heads: int, freqs: tuple):
+                        heads: int, freqs: tuple, prepared: tuple | None = None):
     """Pooled, projected frustum features (N, out_dim) by the reference's
-    route: the CUDA kernels of that form for CUDA tensors, its plain version
-    for CPU tensors."""
+    route: the CUDA kernels of that form where _lib.launches, else its plain
+    version. The kernels read `prepared` (kg, w) where given, else kg and w;
+    the gradient is the plain version's on kg and w (as the parameters are,
+    the gradient's path to them)."""
     V, H, W_, hid = maps_p.shape
     two_phase = crossview_route(V, H, W_, hid, maps_p.dtype) == "two_phase"
-    if not maps_p.is_cuda:
-        plain = crossview_two_phase_plain if two_phase else crossview_plain
+    plain = crossview_two_phase_plain if two_phase else crossview_plain
+    if not _lib.launches(maps_p):
         return plain(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
-    if two_phase:
-        out = launch_crossview_two_phase(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
-        _lib.LAUNCHES["crossview_two_phase"] += 1
-    else:
-        out = launch_crossview(xy, pts, centers, mask, b_acc, maps_p, kg, w, heads, freqs)
-        _lib.LAUNCHES["crossview"] += 1
+    launch = launch_crossview_two_phase if two_phase else launch_crossview
+    pkg, pw = (kg, w) if prepared is None else prepared
+    L = len(w.qkv_w)
+    out = _lib.with_plain_backward(
+        lambda *t: launch(*t[:6], pkg, pw, heads, freqs),
+        lambda *t: plain(*t[:6], *_unflat_weights(t[6:], L, w.qkv_heads), heads, freqs),
+        xy, pts, centers, mask, b_acc, maps_p, *_flat_weights(kg, w))
+    _lib.LAUNCHES["crossview_two_phase" if two_phase else "crossview"] += 1
     return out

@@ -260,7 +260,10 @@ def should_fuse_gn(shape, groups: int) -> bool:
     """The reference's gate (ops/groupnorm.py::should_fuse_gn): group-divisible
     C, and either HW*C <= 2^20 (K1: every UNet GroupNorm of the flagship, the
     VAE's 32^2 maps) or, under MVDF_GN_TILED=1 (read when called), a larger
-    map that the reference's tiled form can tile (K7)."""
+    map that the reference's tiled form can tile (K7); closed under the
+    kernel-off switch."""
+    if _lib.switched_off():
+        return False
     n = 1
     for d in shape[1:-1]:
         n *= d
@@ -285,7 +288,9 @@ def gn_route(shape, groups: int, device_type: str, gated: bool = True) -> str:
     _pick_tile finds a tile, else the plain version). On "cuda" every map
     above 2^20 elements an image goes to K7 where tiled_takes its C and to
     the plain version where not, gated or not (module docstring); on "cpu"
-    the route is the reference's."""
+    the route is the reference's. Under the kernel-off switch, "plain"."""
+    if _lib.switched_off():
+        return "plain"
     n = 1
     for d in shape[1:-1]:
         n *= d
@@ -363,6 +368,7 @@ def launch_group_norm(x, weight, bias, groups: int, eps: float, act: str = "none
     _lib.GN_SHAPES by (B, N, C, act) (not in LAUNCHES). `stamps`, an int64
     CUDA tensor of 8 + 2 B k entries, receives device clock stamps: CTA
     (0, 0)'s K1_PHASES, then each CTA's start and end."""
+    _lib.no_graph("launch_group_norm", x, weight, bias)
     B, N, C = x.shape
     plan, args, resident, code = _launch_args(B, N, C, x.dtype, groups, plan)
     x = x.contiguous()
@@ -389,6 +395,7 @@ def launch_fold(x, weight, bias, groups: int, eps: float, clamp: bool, plan: Til
     per-tile channel sums, their sum and the fold by the CTA that completes
     each sample. Returns the folded affine (a, b), each (B, C) fp32 (no
     counting)."""
+    _lib.no_graph("launch_fold", x, weight, bias)
     B, N, C = x.shape
     if C % groups:
         raise ValueError(f"C={C} not divisible by {groups} groups")
@@ -408,6 +415,7 @@ def launch_apply_affine(x, a, b, act: str = "none", plan: TiledPlan | None = Non
     before it on the stream and loads x ahead of that kernel's end, so x
     must be complete before that kernel starts (as behind launch_fold on
     the same x); a and b are read after it ends."""
+    _lib.no_graph("launch_apply_affine", x, a, b)
     B, N, C = x.shape
     x, plan = _tiled_operand(x, plan)
     y = torch.empty_like(x)
@@ -419,6 +427,7 @@ def launch_apply_affine(x, a, b, act: str = "none", plan: TiledPlan | None = Non
 def launch_group_norm_tiled(x, weight, bias, groups: int, eps: float, act: str = "none"):
     """K7 on a CUDA (B, N, C) tensor: stats pass with the fold, apply pass
     launched behind it (no counting)."""
+    _lib.no_graph("launch_group_norm_tiled", x, weight, bias)
     x, plan = _tiled_operand(x, None)
     a, b = launch_fold(x, weight, bias, groups, eps, clamp=True, plan=plan)
     return launch_apply_affine(x, a, b, act, plan)
@@ -427,20 +436,18 @@ def launch_group_norm_tiled(x, weight, bias, groups: int, eps: float, act: str =
 def group_norm_act(x, weight, bias, groups: int, eps: float, act: str = "none", route: str | None = None):
     """GroupNorm(+SiLU) of (B, N, C) on `route` (gn_route's answer; by
     default the ungated route for x's device): "k7" the tiled form, "k1" K1,
-    "plain" the plain version. A CUDA tensor launches the kernel, a CPU
-    tensor takes the kernel's plain version."""
+    "plain" the plain version. Where _lib.launches, the kernel (its gradient
+    the plain version's), else the kernel's plain version."""
     if route is None:
         route = gn_route(x.shape, groups, x.device.type, gated=False)
     if route == "plain":
         return group_norm_plain(x, weight, bias, groups, eps, act)
-    if route == "k7":
-        if not x.is_cuda:
-            return group_norm_tiled_plain(x, weight, bias, groups, eps, act)
-        y = launch_group_norm_tiled(x, weight, bias, groups, eps, act)
-        _lib.LAUNCHES["groupnorm_tiled"] += 1
-        return y
-    if not x.is_cuda:
-        return group_norm_plain(x, weight, bias, groups, eps, act)
-    y = launch_group_norm(x, weight, bias, groups, eps, act)
-    _lib.LAUNCHES["groupnorm"] += 1
+    tiled = route == "k7"
+    plain = group_norm_tiled_plain if tiled else group_norm_plain
+    if not _lib.launches(x):
+        return plain(x, weight, bias, groups, eps, act)
+    launch = launch_group_norm_tiled if tiled else launch_group_norm
+    y = _lib.with_plain_backward(lambda x, w, b: launch(x, w, b, groups, eps, act),
+                                 lambda x, w, b: plain(x, w, b, groups, eps, act), x, weight, bias)
+    _lib.LAUNCHES["groupnorm_tiled" if tiled else "groupnorm"] += 1
     return y
