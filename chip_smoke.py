@@ -93,7 +93,21 @@ Phases, each printed with elapsed seconds as it starts and ends:
               range and the launch counts, holds the default route against
               the plain GroupNorm's and the switched forms against the
               default, then times encode and decode per route
-  8. train    the train path (run_train): configs/train.yaml's model in
+  8. weights  real weights at full width (run_weights): the slice phase's
+              model written as a reference-layout file with the dead keys a
+              real mvdfusion_sep23.pt carries (torch.save into the
+              git-ignored build/), loaded by convert/reference.py's
+              load_viewfusion into a second model from another seed after
+              one flagship step filled its prepared-weight caches (0
+              missing keys, unused = the dead keys, every parameter equal);
+              both models answer the flagship request at 2 steps on the same
+              noise, bit-equal (or within the source's run-to-run spread);
+              a pre-surgery zero123 UNet file through load_zero123_unet
+              (every other UNet row landed, the aligned_attn_* rows and the
+              removed convs kept); one eta=0 request on quad timesteps (K1-K4
+              launched, equal latents under other step noise); logs the
+              file's GB and the write and load seconds, deletes the files
+  9. train    the train path (run_train): configs/train.yaml's model in
               bf16 with random weights and its trainer section (5 targets,
               4 scenes a call, grad_accum_step 4, finetune_unet) on a
               2-scene GSO-layout directory of random 256^2 images it
@@ -111,7 +125,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               flagship shape in bf16 against the plain version's autograd
               (bit-equal, or 1 bf16 ulp where its backward adds with
               atomics); with --profile, STEPS more calls by kernel
-  9. stages   K4 and K4b traced by kernel name (crossview_stages): device
+  10. stages  K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -1236,15 +1250,15 @@ def check_gn_shapes(shapes, B: int, steps: int) -> int:
 
 
 # ---------------------------------------------------------------- phase 4
-def build_model(device: str = "cuda", cfg=None):
-    """The full-width model (or `cfg`) with random weights from SEED, towers
-    cast to cfg.dtype."""
+def build_model(device: str = "cuda", cfg=None, seed: int = SEED):
+    """The full-width model (or `cfg`) with random weights from `seed`,
+    towers cast to cfg.dtype."""
     import torch
 
     from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
 
     cfg = cfg or ViewFusionConfig()
-    model = randomize_(ViewFusion(cfg, device=torch.device(device)), SEED).cast_for_inference().eval()
+    model = randomize_(ViewFusion(cfg, device=torch.device(device)), seed).cast_for_inference().eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  ViewFusion built on {device}: {n_params / 1e9:.3f} B parameters, towers in {cfg.dtype}")
     return model
@@ -1265,11 +1279,12 @@ def flagship_scene(model, dev):
                 target_idx=torch.arange(1, S, device=dev))
 
 
-def answer(model, scene, steps: int, seed: int, dev):
+def answer(model, scene, steps: int, seed: int, dev, **sample_kw):
     """One flagship request on random images from `seed`: prepare_batch,
-    `steps` eta=1 DDIM steps at CFG 2.5, decode; checks shapes, finiteness and
-    the [0, 1] image range. Returns the latents, the prepared sampler inputs
-    and the seconds of each part."""
+    `steps` DDIM steps at CFG 2.5 (eta=1 on uniform timesteps unless
+    `sample_kw` says otherwise), decode; checks shapes, finiteness and the
+    [0, 1] image range. Returns the latents, the prepared sampler inputs and
+    the seconds of each part."""
     import torch
 
     from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
@@ -1287,7 +1302,7 @@ def answer(model, scene, steps: int, seed: int, dev):
                                                        scene["input_idx"], scene["target_idx"])
         sync()
         t1 = time.perf_counter()
-        res = ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g)
+        res = ddim_sample(model, *prepared, 2.5, num_steps=steps, generator=g, **sample_kw)
         sync()
         t2 = time.perf_counter()
         imgs = model.decode_latents(res.latents[..., :4])
@@ -1687,6 +1702,158 @@ def vae_route_times(model, images, z, card: str) -> None:
                         ts.append((time.perf_counter() - t0) * 1e3)
                 log(f"  vae {route} {what}: median {statistics.median(ts):.4f} ms, min {min(ts):.4f}, "
                     f"max {max(ts):.4f} over {VAE_ITERS} calls after one warm-up, on {card}")
+
+
+# ---------------------------------------------------------------- phase 8
+# keys a real mvdfusion_sep23.pt carries that no parameter takes: the
+# scheduler's buffers, GridAttn's dead t_embedder, the CLIP text tower's
+# leftovers (tests/test_convert_full.py); any shapes do
+DEAD_KEYS = {
+    "scheduler.betas": (1000,),
+    "scheduler.alphas_cumprod": (1000,),
+    "view_attn.t_embedder.mlp.0.weight": (256, 256),
+    "view_attn.t_embedder.mlp.0.bias": (256,),
+    "clip_image_encoder.model.token_embedding.weight": (16, 768),
+    "clip_image_encoder.model.positional_embedding": (77, 768),
+    "clip_image_encoder.model.ln_final.weight": (768,),
+    "clip_image_encoder.model.text_projection": (768, 768),
+    "clip_image_encoder.model.logit_scale": (),
+}
+WEIGHTS_STEPS = 2  # DDIM steps of each of the phase's requests
+
+
+def run_weights(card: str, device: str = "cuda", cfg=None, model=None, out_dir=None) -> dict:
+    """Real weights at full width: the slice phase's model written as a
+    reference-layout file (its state and DEAD_KEYS, torch.save) and loaded
+    by convert/reference.py::load_viewfusion into a second model built from
+    another seed whose prepared weights were cached by one flagship step
+    first; both models answer the flagship request on the same noise and
+    must agree bit for bit (within the source's own run-to-run spread if
+    that is not 0). Then a pre-surgery zero123 UNet file through
+    load_zero123_unet, and one eta=0 quad request (K1-K4 launched, the
+    same latents under other step noise). Files go to `out_dir` (the
+    git-ignored build/ directory) and are deleted. `device`/`cfg` let it be
+    rehearsed on the CPU at the tiny config (launch counts are then 0).
+    Returns the eta=0 request's launches."""
+    import torch
+
+    from mvdfusion_tpu_torch.convert import reference as P
+    from mvdfusion_tpu_torch.convert.surgery import ZERO123_PARAM_MAPPER, ZERO123_REMOVE_KEYS
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
+
+    dev = torch.device(device)
+    src = model if model is not None else build_model(device, cfg)
+    cfg = src.cfg
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out_dir = Path(out_dir) if out_dir is not None else HERE / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = [out_dir / "weights_sep23.pt", out_dir / "weights_zero123.ckpt"]
+    dst = None
+    try:
+        # 1. the reference-layout file
+        g = torch.Generator().manual_seed(SEED + 7)
+        dead = {k: torch.randn(shape, generator=g) for k, shape in DEAD_KEYS.items()}
+        ref_sd = src.state_dict()
+        sync()
+        t0 = time.perf_counter()
+        torch.save({**ref_sd, **dead}, files[0])
+        write_s = time.perf_counter() - t0
+        gb = files[0].stat().st_size / 1e9
+        log(f"  wrote {files[0].name}: {gb:.3f} GB ({len(ref_sd)} parameters + {len(dead)} dead keys) "
+            f"in {write_s:.2f}s ({gb / write_s:.2f} GB/s)")
+
+        # 2. into a second model whose prepared weights are cached
+        dst = build_model(device, cfg, seed=SEED + 100)
+        scene = flagship_scene(dst, dev)
+        answer(dst, scene, 1, SEED + 1, dev)
+        sync()
+        t0 = time.perf_counter()
+        stats = P.load_viewfusion(dst, str(files[0]), verbose=False)
+        sync()
+        load_s = time.perf_counter() - t0
+        check(stats.missing == [], f"load_viewfusion: {len(stats.missing)} missing keys, e.g. {stats.missing[:3]}")
+        check(sorted(stats.unused) == sorted(DEAD_KEYS), f"load_viewfusion: unused keys {sorted(stats.unused)}")
+        check(len(stats.written) == len(ref_sd), f"load_viewfusion wrote {len(stats.written)} of {len(ref_sd)}")
+        dst_sd = dst.state_dict()
+        bad = [k for k, v in ref_sd.items() if not torch.equal(dst_sd[k], v)]
+        check(not bad, f"{len(bad)} parameters differ from the source after the load, e.g. {bad[:3]}")
+        log(f"  load_viewfusion: {len(stats.written)} written, 0 missing, unused = the {len(DEAD_KEYS)} dead keys, "
+            f"every parameter equal to the source's; {load_s:.2f}s ({gb / load_s:.2f} GB/s)")
+
+        # 3. both models on the same noise, kernels on
+        runs = [answer(m, scene, WEIGHTS_STEPS, SEED + 11, dev)[0] for m in (src, src, dst)]
+        spread = (runs[1] - runs[0]).abs().max().item()
+        gap = (runs[2] - runs[0]).abs().max().item()
+        log(f"  flagship at {WEIGHTS_STEPS} steps: loaded vs source max|diff| {gap:.3e}, the source's run-to-run "
+            f"spread {spread:.3e}")
+        check(gap <= spread, f"the loaded model's latents differ from the source's by {gap:.3e} > the run-to-run "
+                             f"spread {spread:.3e}: stale prepared weights?")
+
+        # 4. a pre-surgery zero123 UNet: the grafted aligned_attn_* layers
+        # absent, the shifted rows at their old positions, the shape-changed
+        # convs dropped, under model.diffusion_model.
+        pre = P.UNET_PREFIX
+        inv = {v: k for k, v in ZERO123_PARAM_MAPPER.items()}
+        gz = torch.Generator(device=dev).manual_seed(SEED + 8)
+        state, want = {}, {}
+        for k, v in dst_sd.items():
+            name = k[len(pre):]
+            if k.startswith(pre) and "aligned_attn_" not in name and name not in ZERO123_REMOVE_KEYS:
+                want[k] = torch.randn(v.shape, generator=gz, device=dev).to(v.dtype)
+                state["model.diffusion_model." + inv.get(name, name)] = want[k]
+        sync()
+        t0 = time.perf_counter()
+        torch.save({"state_dict": state}, files[1])
+        zwrite_s = time.perf_counter() - t0
+        zgb = files[1].stat().st_size / 1e9
+        del state
+        sync()
+        t0 = time.perf_counter()
+        zstats = P.load_zero123_unet(dst, str(files[1]), verbose=False)
+        sync()
+        zload_s = time.perf_counter() - t0
+        kept = [k[len(pre):] for k in zstats.missing]
+        check(zstats.unused == [] and sorted(zstats.written) == sorted(want),
+              f"load_zero123_unet: {len(zstats.written)} written of {len(want)}, unused {zstats.unused[:3]}")
+        check(set(ZERO123_REMOVE_KEYS) <= set(kept) and all("aligned_attn_" in k or k in ZERO123_REMOVE_KEYS
+                                                             for k in kept), f"rows kept at their values: {kept[:5]}")
+        dst_sd = dst.state_dict()
+        check(all(torch.equal(dst_sd[k], v) for k, v in want.items()), "a zero123 row did not land")
+        check(all(torch.equal(dst_sd[pre + k], ref_sd[pre + k]) for k in kept),
+              "an aligned_attn_* row or a removed conv changed")
+        log(f"  load_zero123_unet: {zgb:.3f} GB file written in {zwrite_s:.2f}s, {len(want)} rows landed after the surgery, {len(kept)} kept "
+            f"their values ({sum('aligned_attn_' in k for k in kept)} aligned_attn_* and the "
+            f"{len(ZERO123_REMOVE_KEYS)} removed convs); {zload_s:.2f}s")
+        del want
+        dst = None
+
+        # 5. a deterministic request: eta=0 on quad timesteps
+        _lib.reset_launches()
+        lat, prepared, _ = answer(src, scene, WEIGHTS_STEPS, SEED + 12, dev, eta=0.0, method="quad")
+        counts = dict(_lib.LAUNCHES)
+        ls, B, D = cfg.latent_size, len(scene["target_idx"]), cfg.n_pts_per_ray
+        gn = torch.Generator(device=dev).manual_seed(SEED + 13)
+        draw = lambda *shape: torch.randn(shape, generator=gn, device=dev)
+        init, jitter = draw(B, ls, ls, 5), draw(WEIGHTS_STEPS, B, ls, ls, D)
+        with torch.no_grad():
+            again = [ddim_sample(src, *prepared, 2.5, num_steps=WEIGHTS_STEPS, eta=0.0, method="quad",
+                                 init_noise=init, jitter_noise=jitter,
+                                 step_noise=draw(WEIGHTS_STEPS, B, ls, ls, 5)).latents for _ in range(2)]
+        eta0_gap = (again[1] - again[0]).abs().max().item()
+        log(f"  eta=0 quad request: max|latent| {lat.abs().max().item():.3f}; two runs from one initial noise "
+            f"under other step noise differ by {eta0_gap:.3e}; launches {counts}")
+        check(eta0_gap <= spread, f"eta=0 runs differ by {eta0_gap:.3e} under other step noise")
+        if dev.type == "cuda":
+            for k in ("groupnorm", "attention", "transformer_block", "crossview"):
+                check(counts.get(k, 0) > 0, f"{k}: no launch in the eta=0 request")
+        return counts
+    finally:
+        del dst
+        for f in files:
+            f.unlink(missing_ok=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2368,6 +2535,9 @@ def main() -> int:
 
     with Phase("vae"):
         vae_counts = run_vae(card, model=model)
+
+    with Phase("weights"):
+        run_weights(card, model=model)
 
     del model
     torch.cuda.empty_cache()

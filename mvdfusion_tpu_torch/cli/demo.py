@@ -12,10 +12,13 @@ Usage:
         [--steps 50] [--cfg-scale 2.5] [--seed 0] [--tiny] [--device cuda]
 
 Runs on the CUDA card unless `--device cpu` is given, one scene after
-another. Checkpoint loading and multi-card evaluation are not ported yet:
-`--ckpt` naming an existing path, `--multihost` and `--scene-batch` above 1
-raise, and without a checkpoint the model runs with random
-weights from `--seed`.
+another. `--ckpt` (default: saver.ckpt_path) names a checkpoint of the
+port's trainer: its directory (the file its `latest` pointer names) or one
+`step_*` file; the demo restores its `params` (not the EMA), as the JAX
+demo does. Where the path does not exist the model runs with random
+weights from `--seed`. The reference's own weight files load in Python
+through convert/reference.py (README). Multi-card evaluation is not ported
+yet: `--multihost` and `--scene-batch` above 1 raise.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def parse_args(argv=None):
     p.add_argument("--eval-num", type=int, default=None, help="number of scenes (default: config)")
     p.add_argument("--steps", type=int, default=None, help="DDIM steps (default: config/50)")
     p.add_argument("--cfg-scale", type=float, default=None)
-    p.add_argument("--ckpt", default=None, help="checkpoint path (default: saver.ckpt_path); not ported yet")
+    p.add_argument("--ckpt", default=None,
+                   help="the trainer's checkpoint directory or step_* file (default: saver.ckpt_path)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true", help="tiny model for smoke runs")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for a CPU run)")
@@ -58,10 +62,12 @@ def main(argv=None):
                                   "(ROADMAP Queue 1: parallelism)")
     import torch
 
+    from mvdfusion_tpu_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
     from mvdfusion_tpu_torch.core.config import build_dataset, build_model_config, load_yaml
     from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, randomize_
     from mvdfusion_tpu_torch.ops.image import area_downsample
     from mvdfusion_tpu_torch.pipeline.eval import eval_scenes
+    from mvdfusion_tpu_torch.pipeline.trainer import load_params
     from mvdfusion_tpu_torch.utils.metrics import cross_view_consistency, perceptual_distance, psnr, ssim
     from mvdfusion_tpu_torch.utils.vis import save_eval_artifacts
 
@@ -76,9 +82,6 @@ def main(argv=None):
     steps = args.steps if args.steps is not None else int(inference.get("num_ddim_steps", 50))
     eval_num = args.eval_num if args.eval_num is not None else int(inference.get("eval_num", 30))
 
-    ckpt = args.ckpt or saver.get("ckpt_path")
-    if ckpt and os.path.exists(str(ckpt)):
-        raise NotImplementedError(f"{ckpt}: checkpoint loading is not ported yet (ROADMAP Queue 1: checkpoint loading)")
     mcfg = build_model_config(cfg)
     if args.tiny:
         mcfg = mcfg.tiny()
@@ -93,7 +96,15 @@ def main(argv=None):
     print(f"[demo] building the model ({'tiny' if args.tiny else 'full'}) on {dev}...")
     t0 = time.time()
     model = randomize_(ViewFusion(mcfg, device=dev), seed=args.seed).eval()
-    print("[demo] no checkpoint found — running with random weights")
+    ckpt = args.ckpt or saver.get("ckpt_path")
+    if ckpt and os.path.exists(str(ckpt)):
+        path = latest_checkpoint(ckpt) if os.path.isdir(ckpt) else ckpt
+        if path is None:
+            raise FileNotFoundError(f"{ckpt}: a directory with no `latest` checkpoint")
+        print(f"[demo] restoring {path}")
+        load_params(model, restore_checkpoint(path)["params"])
+    else:
+        print("[demo] no checkpoint found — running with random weights")
     if inference.get("bf16_weights", True) and dev.type == "cuda":
         model.cast_for_inference()
     print(f"[demo] model ready {time.time() - t0:.1f}s")

@@ -206,8 +206,11 @@ def viewfusion_table(cfg) -> Table:
     _vae(t, cfg, ("vae",), "vae.")
     _clip(t, cfg, ("clip",), "clip_image_encoder.model.visual.")
     _viewattn(t, cfg, ("view_attn",), "view_attn.")
-    for i, tidx in enumerate((0, 2, 4)):
-        _dense(t, (f"cc_layers_{i}",), f"cc_projection.{tidx}")
+    if cfg.embed_camera_pose:
+        for i, tidx in enumerate((0, 2, 4)):
+            _dense(t, (f"cc_layers_{i}",), f"cc_projection.{tidx}")
+    else:  # the legacy pose path's one layer
+        _dense(t, ("cc_layers_0",), "cc_projection")
     _dense(t, ("time_dense1",), "time_embed.0")
     _dense(t, ("time_dense2",), "time_embed.2")
     return t

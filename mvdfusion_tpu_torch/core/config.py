@@ -60,19 +60,16 @@ def build_dataset(cfg: dict):
 
 # ------------------------------------------------------------------- model
 def build_model_config(cfg: dict, dtype=torch.bfloat16) -> ViewFusionConfig:
-    """Flatten the model section into a ViewFusionConfig. Raises on a
-    setting the port lacks (the legacy pose embedding)."""
+    """Flatten the model section into a ViewFusionConfig."""
     mp = cfg["model"]["params"]
     va = mp.get("view_attn_config", {}).get("params", {})
     un = mp.get("unet_config", {}).get("params", {})
     dd = mp.get("ddpm_config", {}).get("params", {})
     vae = mp.get("vae_config", {}).get("params", {})
     ddcfg = vae.get("ddconfig", {})
-    if not mp.get("embed_camera_pose", True):
-        raise NotImplementedError("embed_camera_pose: false (the legacy zero123 pose embedding) is not ported yet "
-                                  "(ROADMAP Queue 1: checkpoint loading)")
     return ViewFusionConfig(
         z_scale_factor=mp.get("z_scale_factor", 0.18215),
+        embed_camera_pose=mp.get("embed_camera_pose", True),
         drop_conditions=mp.get("drop_conditions", False),
         objective=mp.get("objective", "noise"),
         loss_type=mp.get("loss_type", "l2"),

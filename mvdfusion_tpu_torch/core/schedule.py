@@ -1,7 +1,8 @@
 """Diffusion noise schedules (torch counterpart of mvdfusion_tpu/core/schedule.py).
 
 The SD linear-sqrt DDPM tables (fp64 math on the host, fp32 tables), the
-eta=1 DDIM sub-schedule with the +1 timestep offset, one DDIM update, and
+DDIM sub-schedule at any eta on uniform or quad timesteps with the +1
+offset, one DDIM update, and
 the training-time forward noising (`q_sample`) and its inverse
 (`predict_start_from_noise`).
 """
@@ -89,21 +90,38 @@ class DDIMSchedule(NamedTuple):
     sigmas: torch.Tensor
 
 
+def make_ddim_timesteps(num_ddim_steps: int, num_ddpm_steps: int, method: str = "uniform") -> np.ndarray:
+    """The DDIM timesteps with the SD +1 offset
+    (ldm/modules/diffusionmodules/util.py:46-61): "uniform", strides of T//S
+    from 0; "quad", linspace(0, sqrt(0.8 T), S)^2 truncated."""
+    if method == "uniform":
+        steps = np.arange(0, num_ddpm_steps, num_ddpm_steps // num_ddim_steps)
+    elif method == "quad":
+        steps = (np.linspace(0, np.sqrt(num_ddpm_steps * 0.8), num_ddim_steps) ** 2).astype(int)
+    else:
+        raise NotImplementedError(f"unknown ddim discretization {method!r}")
+    return steps + 1
+
+
 def make_ddim_schedule(
     num_ddpm_steps: int = 1000,
     num_steps: int = 50,
     linear_start: float = 0.00085,
     linear_end: float = 0.0120,
     device="cpu",
+    *,
+    eta: float = 1.0,
+    method: str = "uniform",
 ) -> DDIMSchedule:
-    """eta=1 DDIM tables; timesteps are uniform strides of T//S from 0 plus
-    the SD +1 offset."""
+    """DDIM tables (mvdfusion/sampler.py:25-39) in fp64, stored fp32:
+    sigma = eta * sqrt((1 - abar_prev) / (1 - abar) * (1 - abar / abar_prev)),
+    eta 1 the reference's sampler, 0 the deterministic one."""
     betas = np.linspace(linear_start**0.5, linear_end**0.5, num_ddpm_steps, dtype=np.float64) ** 2
     abar = np.cumprod(1.0 - betas)
-    ts = np.arange(0, num_ddpm_steps, num_ddpm_steps // num_steps) + 1
+    ts = make_ddim_timesteps(num_steps, num_ddpm_steps, method)
     alphas = abar[ts]
     alphas_prev = np.concatenate([abar[0:1], abar[ts[:-1]]])
-    sigmas = np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
     return DDIMSchedule(
         timesteps=torch.as_tensor(ts, dtype=torch.int64, device=device),
         alphas=_f32(alphas, device),

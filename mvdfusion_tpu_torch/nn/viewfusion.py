@@ -4,9 +4,12 @@ counterpart of mvdfusion_tpu/nn/viewfusion.py).
 Owns the UNet, VAE, CLIP tower, GridAttn, the eye-initialised cc_projection
 and the auxiliary time-embed MLP, with the state-dict names of the reference
 checkpoint (unet_model.unet_model.*, vae.*, clip_image_encoder.model.visual.*,
-view_attn.*, cc_projection.{0,2,4}, time_embed.{0,2}).
+view_attn.*, cc_projection.{0,2,4}, time_embed.{0,2}; with
+embed_camera_pose=False the legacy zero123 cc_projection.{weight,bias}).
 
   prepare_batch    VAE encode, depth channels, relative cameras, CLIP + pose
+                   (the 28-dim camera embedding, or the legacy 4-dim
+                   delta-pose vector from azimuth and elevation)
   apply_model      GridAttn -> cc_projection -> UNet, one conditional pass
                    with the training-time condition dropout
   apply_model_cfg  GridAttn -> cc_projection -> UNet over one 2B batch (cond
@@ -45,6 +48,10 @@ class ViewFusionConfig:
     """Static model hyperparameters (configs/mvd_gso.yaml `model.params`)."""
 
     z_scale_factor: float = 0.18215
+    # the 28-dim camera embedding and the 3-layer cc_projection; False: the
+    # legacy zero123 delta pose [d_elev, sin d_azim, cos d_azim, 0] and one
+    # Linear(context_dim + 4, context_dim) (viewfusion_zero_depth_rgb.py:108-121)
+    embed_camera_pose: bool = True
     # training: per-sample condition dropout in four disjoint 5% bands
     # (apply_model), the target of the L2 loss ("noise" or "x_start"), and
     # the loss (the reference has only "l2")
@@ -146,14 +153,19 @@ class ViewFusion(nn.Module):
             n_pts_per_ray=c.n_pts_per_ray, keep_top_k_views=c.keep_top_k_views, top_k=c.top_k,
         )
         d = c.context_dim
-        # [clip | 28-dim pose embed] -> context; first layer eye/zero initialised
-        self.cc_projection = nn.ModuleList(
-            [Linear(d + 28, d), nn.Identity(), Linear(d, d), nn.Identity(), Linear(d, d)]
-        )
+        # [clip | 28-dim pose embed] -> context, or [clip | 4-dim delta pose]
+        # in the legacy layout; the first layer eye/zero initialised
+        if c.embed_camera_pose:
+            self.cc_projection = nn.ModuleList(
+                [Linear(d + 28, d), nn.Identity(), Linear(d, d), nn.Identity(), Linear(d, d)]
+            )
+            first = self.cc_projection[0]
+        else:
+            self.cc_projection = first = Linear(d + 4, d)
         with torch.no_grad():
-            self.cc_projection[0].weight.zero_()
-            self.cc_projection[0].weight[:d, :d] = torch.eye(d)
-            self.cc_projection[0].bias.zero_()
+            first.weight.zero_()
+            first.weight[:d, :d] = torch.eye(d)
+            first.bias.zero_()
         self.time_embed = nn.ModuleList(
             [Linear(c.time_embed_dim, c.time_embed_dim), nn.Identity(), Linear(c.time_embed_dim, c.time_embed_dim)]
         )
@@ -209,15 +221,18 @@ class ViewFusion(nn.Module):
         return self.time_embed[2](silu(h))
 
     def cc_proj(self, x):
+        if not self.cfg.embed_camera_pose:
+            return self.cc_projection(x)
         x = self.cc_projection[0](x)
         x = self.cc_projection[2](silu(x))
         return self.cc_projection[4](silu(x))
 
     # -------------------------------------------------------------- data prep
-    def prepare_batch(self, images, R, T, f, c, input_idx, target_idx, depths=None):
+    def prepare_batch(self, images, R, T, f, c, input_idx, target_idx, depths=None, azimuth=None, elevation=None):
         """images (S, H, W, 3) in [0, 1]; cameras (S, ...); input_idx (1,),
         target_idx (B,) -> (batch_latents, batch_cameras, input_latents,
-        input_cameras, clip_v_embed)."""
+        input_cameras, clip_v_embed). azimuth and elevation (S,), in radians,
+        are read by the legacy pose path only."""
         S, H, W, _ = images.shape
         B = target_idx.shape[0]
         ls = self.cfg.latent_size
@@ -237,10 +252,19 @@ class ViewFusion(nn.Module):
 
         clip_embed = self.clip_image_encoder(images[input_idx]).expand(B, 1, -1)
 
-        def cam_vec(cc: Cameras):  # R 9 + T 3 + f 2
-            return torch.cat([cc.R.reshape(len(cc), 1, 9), cc.T[:, None, :], cc.focal_length[:, None, :]], -1)
+        if self.cfg.embed_camera_pose:
+            def cam_vec(cc: Cameras):  # R 9 + T 3 + f 2
+                return torch.cat([cc.R.reshape(len(cc), 1, 9), cc.T[:, None, :], cc.focal_length[:, None, :]], -1)
 
-        cam_embed = torch.cat([cam_vec(input_cameras).expand(B, 1, 14), cam_vec(batch_cameras)], dim=-1)
+            cam_embed = torch.cat([cam_vec(input_cameras).expand(B, 1, 14), cam_vec(batch_cameras)], dim=-1)
+        else:
+            # the legacy zero123 delta pose (viewfusion:261-270); the
+            # reference negates the elevations before the difference
+            if azimuth is None or elevation is None:
+                raise ValueError("embed_camera_pose=False: prepare_batch needs azimuth= and elevation=")
+            d_a = azimuth[target_idx] - azimuth[input_idx]
+            d_e = (-elevation[target_idx]) - (-elevation[input_idx])
+            cam_embed = torch.stack([d_e, torch.sin(d_a), torch.cos(d_a), torch.zeros_like(d_a)], -1)[:, None, :]
         clip_v_embed = torch.cat([clip_embed, cam_embed], dim=-1)
         return batch_latents, batch_cameras, input_latents, input_cameras, clip_v_embed
 

@@ -1,4 +1,4 @@
-"""Scene evaluation: prepare -> eta=1 DDIM -> chunked decode (counterpart of
+"""Scene evaluation: prepare -> eta-DDIM -> chunked decode (counterpart of
 mvdfusion_tpu/pipeline/eval.py::eval_scenes).
 
 The JAX package vmaps the scene pipeline and shards the scene axis over its
@@ -41,6 +41,7 @@ def eval_scenes(
     target_idx: torch.Tensor,  # (B,)
     cfg_scale: float,
     num_steps: int = 50,
+    eta: float = 1.0,
     generators: Optional[Sequence[torch.Generator]] = None,  # one per scene
     init_noise: Optional[torch.Tensor] = None,  # (N, B, h, w, C)
     step_noise: Optional[torch.Tensor] = None,  # (N, S_steps, B, h, w, C)
@@ -64,7 +65,7 @@ def eval_scenes(
         sync()
         t1 = time.perf_counter()
         res = ddim_sample(
-            model, cams, in_lat, in_cams, clip_v, cfg_scale, num_steps=num_steps,
+            model, cams, in_lat, in_cams, clip_v, cfg_scale, num_steps=num_steps, eta=eta,
             feed_prev_depth=model.cfg.feed_prev_depth,
             init_noise=pick(init_noise, n), step_noise=pick(step_noise, n), jitter_noise=pick(jitter_noise, n),
             generator=pick(generators, n),

@@ -1,9 +1,11 @@
 """eta-DDIM sampling loop (torch counterpart of mvdfusion_tpu/pipeline/sampler.py).
 
 A Python loop over the DDIM steps; each step is one `apply_model_cfg` and one
-`ddim_step`, shared timestep across views. With `feed_prev_depth`, each
-step's pred_x0 depth channel replaces the next step's GridAttn depth
-estimate; step 0, which has none yet, takes the unbiased estimate
+`ddim_step`, shared timestep across views, at any eta (1, the default, is
+the reference's sampler) on uniform or quad timesteps, the carry clamped to
+[-x_clip, x_clip] after each update where `x_clip` is given. With
+`feed_prev_depth`, each step's pred_x0 depth channel replaces the next
+step's GridAttn depth estimate; step 0, which has none yet, takes the unbiased estimate
 x_t[depth] / sqrt(abar_t) as the reference does. All randomness is drawn up front
 from an explicit torch.Generator, or passed in (`init_noise`, `step_noise`,
 `jitter_noise`) so a test can feed the JAX sampler and this one the same
@@ -32,24 +34,31 @@ def ddim_sample(
     batch_cameras: Cameras,
     input_latents: torch.Tensor,  # (1, h, w, 5)
     input_cameras: Cameras,
-    clip_v_embed: torch.Tensor,  # (B, 1, ctx + 28)
+    clip_v_embed: torch.Tensor,  # (B, 1, ctx + 28), ctx + 4 on the legacy pose path
     cfg_scale: float,
     num_steps: int = 50,
+    eta: float = 1.0,
     feed_prev_depth: bool = False,
     return_trajectory: bool = False,
     init_noise: Optional[torch.Tensor] = None,  # (B, H, W, C)
     step_noise: Optional[torch.Tensor] = None,  # (S, B, H, W, C)
     jitter_noise: Optional[torch.Tensor] = None,  # (S, B, H, W, D)
     generator: Optional[torch.Generator] = None,
+    x_clip: Optional[float] = None,
+    method: str = "uniform",
 ) -> SampleResult:
-    """Generate B views of 5-channel (RGB-D) latents with eta=1 DDIM. Loop
-    step i runs DDIM index S-1-i and consumes step_noise[i] and jitter_noise[i]."""
+    """Generate B views of 5-channel (RGB-D) latents with eta-DDIM. Loop
+    step i runs DDIM index S-1-i and consumes step_noise[i] and jitter_noise[i].
+    `x_clip` (None: the reference, which has no clamp) clamps the carry after
+    every update, a rail against the blow-up a short-trained model can hit
+    late in an eta=1 trajectory."""
     cfg = model.cfg
     dev = clip_v_embed.device
     B = clip_v_embed.shape[0]
     H = W = cfg.latent_size
     C = cfg.unet_out_channels
-    ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev)
+    ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev, eta=eta,
+                              method=method)
     draw = lambda *shape: torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
     x = draw(B, H, W, C) if init_noise is None else init_noise.to(dev, torch.float32)
     if step_noise is None:
@@ -71,6 +80,8 @@ def ddim_sample(
             prev_depth=prev_depth,
         )
         x, pred_x0 = ddim_step(ddim, x, noise_pred, index, step_noise[i])
+        if x_clip is not None:
+            x = torch.clamp(x, -x_clip, x_clip)
         if feed_prev_depth:
             prev_depth = pred_x0[..., 4:5]
         if return_trajectory:

@@ -557,3 +557,42 @@ def test_gpu_gemm_routes_and_prepared_site(cuda):
     assert torch.equal(first, K3.launch_transformer_block(x, a2, prepared, heads))
     assert all(getattr(prepared, f)._mvdf_tma[1] is m for f, m in maps.items())
     assert torch.equal(first, K3.launch_transformer_block(x, a2, raw, heads))
+
+
+@pytest.mark.gpu
+def test_gpu_loaded_file_reaches_the_cached_site_weights(cuda, tmp_path):
+    """A transformer site at the flagship's 32^2 shape runs K3 once, so its
+    prepared weights are cached; then a file of another site's weights
+    loads into it through convert/reference.py. Its next output equals the
+    other site's bit for bit (the copy moved the versions the cache is
+    keyed on) and differs from its first."""
+    from mvdfusion_tpu_torch.convert import reference as P
+    from mvdfusion_tpu_torch.nn.layers import GroupNorm32, LayerNormFp32
+    from mvdfusion_tpu_torch.nn.unet import SpatialTransformer
+    from mvdfusion_tpu_torch.nn.viewfusion import randomize_
+    from mvdfusion_tpu_torch.ops import _lib
+
+    C, heads, ctx = 320, 8, 768
+
+    def site(seed):
+        m = randomize_(SpatialTransformer(C, heads, C // heads, 1, ctx).to(cuda), seed)
+        for mod in m.modules():  # the model's compute dtypes: norms in fp32, the rest in bf16
+            if not isinstance(mod, (GroupNorm32, LayerNormFp32)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(torch.bfloat16)
+        return m.eval()
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, context = _rand(g, cuda, torch.bfloat16, 2, 32, 32, C), _rand(g, cuda, torch.bfloat16, 2, 1, ctx)
+    a, b = site(0), site(1)
+    with torch.no_grad():
+        _lib.reset_launches()
+        first = a(x, context)
+        assert _lib.LAUNCHES["transformer_block"] == 1
+        path = str(tmp_path / "site.pt")
+        torch.save(b.state_dict(), path)
+        stats = P.load_state(a, P.load_torch_state(path), verbose=False)
+        assert stats.missing == [] and stats.unused == [] and len(stats.written) == len(b.state_dict())
+        after, want = a(x, context), b(x, context)
+    assert _lib.LAUNCHES["transformer_block"] == 3
+    assert torch.equal(after, want) and not torch.equal(after, first)
