@@ -2,6 +2,7 @@
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--train-steps N] [--profile STEPS]
+                          [--learn]
     python3 chip_smoke.py --profile-only STEPS
     python3 chip_smoke.py --k1-sweep
     python3 chip_smoke.py --k5-sweep
@@ -108,16 +109,19 @@ Phases, each printed with elapsed seconds as it starts and ends:
               launched, equal latents under other step noise); logs the
               file's GB and the write and load seconds, deletes the files
   9. train    the train path (run_train): configs/train.yaml's model in
-              bf16 with random weights and its trainer section (5 targets,
-              4 scenes a call, grad_accum_step 4, finetune_unet) on a
-              2-scene GSO-layout directory of random 256^2 images it
-              writes (no Objaverse render ships: the cut), through
-              cli/train.py's main for --train-steps optimizer steps (the
-              default step, train_fuse_mode "never") with a checkpoint,
-              then a one-step resume; checks the frozen parameters
-              bit-equal, K1 and K2 launched inside the step, finite losses
-              and gradients; prints s a call and an optimizer step,
-              scenes/s and peak memory; then one micro-step under "model"
+              bf16 with random weights, its trainer section (5 targets,
+              4 scenes a call, grad_accum_step 4, finetune_unet) and its
+              own `objaverse` dataset target with only the root moved to
+              a 2-scene Objaverse-layout tree of random 256^2 renders
+              (jpg, 16-bit depth png, jpg mask; 64 a scene) it writes (no
+              render ships: the cut), through cli/train.py's main for
+              --train-steps optimizer steps (the default step,
+              train_fuse_mode "never") with a checkpoint, then a one-step
+              resume; checks the frozen parameters bit-equal, K1 and K2
+              launched inside the step, finite losses and gradients;
+              prints s a call and an optimizer step, scenes/s, peak memory
+              and the loader's s a scene and a batch against s a call;
+              then one micro-step under "model"
               against "never" (TRAIN_MODE_* tolerances), one full-width
               apply_model_cfg with the kernels against MVDF_DISABLE_PALLAS=1
               (tools/numerics_check.py, no launch under the switch), and
@@ -125,7 +129,16 @@ Phases, each printed with elapsed seconds as it starts and ends:
               flagship shape in bf16 against the plain version's autograd
               (bit-equal, or 1 bf16 ulp where its backward adds with
               atomics); with --profile, STEPS more calls by kernel
-  10. stages  K4 and K4b traced by kernel name (crossview_stages): device
+  10. learn   with --learn only (about 110 s, most of it the host's
+              launches of 260 train steps): tests/test_learning.py's
+              proof through tools/overfit_synthetic.py (run_learn): the
+              tiny model in fp32, 2 synthetic scenes, 120 VAE steps, 260
+              diffusion steps, 8-step DDIM of views 3 and 11; checks that
+              test's four thresholds, K1 in the VAE pretrain and K1, K3
+              and K4 in the trained evaluation, and one scene's trained
+              evaluation against the kernel-off switch on the same noise
+              (LEARN_PLAIN_RTOL)
+  11. stages  K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -1858,7 +1871,7 @@ def run_weights(card: str, device: str = "cuda", cfg=None, model=None, out_dir=N
 
 # ---------------------------------------------------------------- phase 9
 TRAIN_CONFIG = HERE / "configs" / "train.yaml"
-TRAIN_SCENES = 2  # GSO-layout scenes the phase writes: no Objaverse render ships
+TRAIN_SCENES = 2  # Objaverse-layout scenes the phase writes: no render ships
 # the train phase's tolerances (PERF.md): one micro-step under
 # train_fuse_mode "model" (K3 at the 32^2 and 16^2 sites, K4 in GridAttn)
 # against "never" (their module paths) on the same parameters and draws, bf16
@@ -1888,14 +1901,42 @@ def write_gso(root: Path, scenes: int, size: int, seed: int) -> None:
     (root / "test.json").write_text(json.dumps(names))
 
 
-def train_config(tmp: Path, size: int, save_interval: int) -> Path:
-    """configs/train.yaml with its dataset replaced by the GSO directory under
-    `tmp`, its saver writing under `tmp` (a checkpoint every save_interval
-    steps, no vis or loss plot); model and trainer sections as they stand."""
+def write_objaverse(root: Path, scenes: int, size: int, seed: int, subset: str = "400k", views=range(64)) -> None:
+    """An Objaverse-layout tree: subset_list/{subset}_train.json and, for each
+    of `scenes` uids, {subset}/{uid}/views/{i:03d}_rgb.jpg, _depth.png (16-bit)
+    and _mask.jpg of random content at size^2 for each render i in `views`
+    (all 64 by default; fix_elevation reads 40..55)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = [f"uid_{s:04d}" for s in range(scenes)]
+    (root / "subset_list").mkdir(parents=True)
+    (root / "subset_list" / f"{subset}_train.json").write_text(json.dumps(names))
+    for name in names:
+        d = root / subset / name / "views"
+        d.mkdir(parents=True)
+        for i in views:
+            Image.fromarray((rng.uniform(size=(size, size, 3)) * 255).astype(np.uint8)).save(d / f"{i:03d}_rgb.jpg")
+            depth = (rng.uniform(size=(size, size)) * 255 * 2).astype(np.uint16)
+            Image.fromarray(depth).save(d / f"{i:03d}_depth.png")
+            Image.fromarray((rng.uniform(size=(size, size)) > 0.5).astype(np.uint8) * 255).save(d / f"{i:03d}_mask.jpg")
+
+
+def train_config(tmp: Path, size: int, save_interval: int, objaverse: bool = False) -> Path:
+    """configs/train.yaml with its saver writing under `tmp` (a checkpoint
+    every save_interval steps, no vis or loss plot) and its dataset on a
+    tree under `tmp` at `size`^2: with `objaverse`, its own `objaverse`
+    target with only the root moved to tmp/objaverse (write_objaverse);
+    else a GSO directory at tmp/gso (write_gso). Model and trainer sections
+    as they stand."""
     import yaml
 
     cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
-    cfg["dataset"] = {"target": "gso", "params": {"root": str(tmp / "gso"), "subset": "test", "image_size": size}}
+    if objaverse:
+        cfg["dataset"]["params"].update(root=str(tmp / "objaverse"), image_size=size)
+    else:
+        cfg["dataset"] = {"target": "gso", "params": {"root": str(tmp / "gso"), "subset": "test", "image_size": size}}
     cfg["saver"] = {"exp_dir": str(tmp / "exp") + "/", "print_interval": 1, "save_interval": save_interval,
                     "vis_interval": 0, "loss_interval": 10**9}
     path = tmp / "train.yaml"
@@ -2096,6 +2137,7 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
 
     from mvdfusion_tpu_torch.cli import train as cli
     from mvdfusion_tpu_torch.core.config import build_dataset, build_train_config, load_yaml
+    from mvdfusion_tpu_torch.data.datasets import Objaverse
     from mvdfusion_tpu_torch.ops import _lib
     from mvdfusion_tpu_torch.pipeline import trainer
     from mvdfusion_tpu_torch.tools import numerics_check
@@ -2103,7 +2145,14 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     init0, step0 = trainer.init_train_state, trainer.train_step
-    calls, frozen = [], {}
+    calls, frozen, loads = [], {}, []
+    item0 = Objaverse.__getitem__
+
+    def load_hook(self, index):
+        t0 = time.perf_counter()
+        out = item0(self, index)
+        loads.append(time.perf_counter() - t0)
+        return out
 
     def init_hook(model, tc):
         state = init0(model, tc)
@@ -2122,13 +2171,16 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
     with tempfile.TemporaryDirectory() as tmpd:
         tmp = Path(tmpd)
         size = 64 if tiny else 256
-        write_gso(tmp / "gso", TRAIN_SCENES, size, SEED)
-        tc = build_train_config(load_yaml(str(TRAIN_CONFIG)))
+        raw = load_yaml(str(TRAIN_CONFIG))
+        check(raw["dataset"]["target"] == "objaverse", f"configs/train.yaml's dataset is {raw['dataset']['target']!r}")
+        write_objaverse(tmp / "objaverse", TRAIN_SCENES, size, SEED, subset=raw["dataset"]["params"]["subset"])
+        tc = build_train_config(raw)
         k = tc.grad_accum_step
-        spc = int(load_yaml(str(TRAIN_CONFIG))["trainer"]["scenes_per_chip"])
-        cfgp = train_config(tmp, size, k * steps)
+        spc = int(raw["trainer"]["scenes_per_chip"])
+        cfgp = train_config(tmp, size, k * steps, objaverse=True)
         argv = ["-c", str(cfgp), "--device", device, "--seed", str(SEED)] + (["--tiny"] if tiny else [])
         trainer.init_train_state, trainer.train_step = init_hook, step_hook
+        Objaverse.__getitem__ = load_hook
         try:
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
@@ -2156,6 +2208,12 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
                 f"call {steady:.3f} s a call (median), {spc / steady:.3f} scenes/s; peak memory "
                 f"{peak:.2f} GiB (max_memory_allocated), main {run_s:.1f}s with the model's build and the "
                 f"checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 2**30:.2f} GiB), on {card}")
+            # the loader runs in the prefetch thread beside the steps: its seconds a
+            # batch (spc scenes) against the seconds a call say what share it could take
+            per_batch = sorted(loads)[len(loads) // 2] * spc
+            log(f"  loader (data/datasets.py::Objaverse, {size}^2 jpgs through PIL): {len(loads)} scenes read, "
+                f"{', '.join(f'{t:.3f}' for t in loads)} s a scene; {per_batch:.3f} s a batch of {spc} scenes (the "
+                f"median scene) against {steady:.3f} s a call after the first ({per_batch / steady:.1%} of a call)")
             log(f"  launches in the run: {counts}")
             if dev.type == "cuda":
                 check(counts.get("groupnorm", 0) > 0 and counts.get("attention", 0) > 0,
@@ -2175,7 +2233,9 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
             log(f"  resumed from step {k * steps}: one call {calls[0][0]:.3f}s, loss {calls[0][1]:.4f}")
         finally:
             trainer.init_train_state, trainer.train_step = init0, step0
+            Objaverse.__getitem__ = item0
         dataset = build_dataset(load_yaml(str(cfgp)))
+        check(isinstance(dataset, Objaverse), f"configs/train.yaml's target built {type(dataset).__name__}")
         if profile and dev.type == "cuda":
             profile_train(model, state, tc, dataset, spc, profile)
         gap = train_mode_gap(model, dataset, dev)
@@ -2192,7 +2252,93 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
         gc.collect()
         torch.cuda.empty_cache()
         function_grad_checks(dev)
-    return dict(counts=counts, gap=gap, numerics=res)
+    return dict(counts=counts, gap=gap, numerics=res, loader_s=loads)
+
+
+# ---------------------------------------------------------------- phase 10
+# the learning proof at tests/test_learning.py's sizes: the tiny model in fp32,
+# 2 scenes of the mixed family with textures, 120 VAE steps, 260 diffusion
+# steps, 8-step DDIM on views 3 and 11
+LEARN_ARGS = dict(scenes=2, vae_steps=120, steps=260, eval_ddim_steps=8, lr=1e-3, vae_lr=3e-3, seed=SEED,
+                  log_every=50, family="mixed", textured=True)
+LEARN_VIEWS = [3, 11]
+# the trained evaluation with the kernels against the same scene under
+# MVDF_DISABLE_PALLAS=1 on the same noise: fp32 on both sides, the kernels
+# sum in other orders, and 8 eta=1 steps carry the differences on
+LEARN_PLAIN_RTOL = 1e-3  # max|diff| <= this x max(1, max|plain|), decoded views and sampled depth
+
+
+def run_learn(card: str, device: str = "cuda") -> dict:
+    """tests/test_learning.py's proof through the port's
+    tools/overfit_synthetic.py (init_params, pretrain_vae, evaluate,
+    train_diffusion): checks its four thresholds (VAE PSNR > 14 dB; the mean
+    of the last 40 losses < 0.62 x the first 40's; trained PSNR > floor +
+    1.5 dB; depth MAE below the floor's), that the VAE pretrain launched K1
+    and the trained evaluation K1, K3 and K4 (on the card), and holds one
+    scene's trained evaluation against the same under the kernel-off switch
+    on the same noise (LEARN_PLAIN_RTOL)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.tools import overfit_synthetic as O
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpd:
+        args = O.OverfitArgs(**LEARN_ARGS, out=tmpd, device=device)
+        _, batch = O.build_dataset(args)
+        model, _ = O.build_model(args)
+        O.init_params(model, args.seed)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        vae_psnr, _ = O.pretrain_vae(model, batch, args)
+        sync()
+        vae_s, vae_counts = time.perf_counter() - t0, dict(_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        _, floor = O.evaluate(model, batch, args, eval_views=LEARN_VIEWS, tag="floor")
+        floor_s = time.perf_counter() - t0
+        _, losses, train_s = O.train_diffusion(model, batch, args)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        _, trained = O.evaluate(model, batch, args, eval_views=LEARN_VIEWS, tag="trained")
+        eval_s, counts = time.perf_counter() - t0, dict(_lib.LAUNCHES)
+        with _lib.plain_versions():
+            _, plain = O.evaluate(model, batch, args, eval_views=LEARN_VIEWS, tag="plain", scenes=[0])
+            plain_launches = sum(_lib.LAUNCHES.values()) - sum(counts.values())
+    mean_psnr = lambda res: float(np.mean([p for r in res for p in r["psnr"]]))
+    floor_psnr, trained_psnr = mean_psnr(floor), mean_psnr(trained)
+    floor_dmae = float(np.mean([r["depth_mae"] for r in floor]))
+    trained_dmae = float(np.mean([r["depth_mae"] for r in trained]))
+    first, last = float(np.mean(losses[:40])), float(np.mean(losses[-40:]))
+    log(f"  VAE: {args.vae_steps} steps in {vae_s:.2f}s, recon PSNR {vae_psnr:.2f} dB (threshold 14); launches "
+        f"{vae_counts}")
+    log(f"  diffusion: {args.steps} steps of {args.scenes} scenes in {train_s:.2f}s ({train_s / args.steps:.4f} s a "
+        f"step), loss first 40 {first:.4f} -> last 40 {last:.4f} (threshold x0.62 = {0.62 * first:.4f})")
+    log(f"  eval ({args.eval_ddim_steps} DDIM steps, views {LEARN_VIEWS}, {args.scenes} scenes): floor "
+        f"{floor_s:.2f}s, trained {eval_s:.2f}s; PSNR floor {floor_psnr:.2f} -> trained {trained_psnr:.2f} dB "
+        f"(threshold floor + 1.5 = {floor_psnr + 1.5:.2f}); depth MAE floor {floor_dmae:.4f} -> trained "
+        f"{trained_dmae:.4f}; launches in the trained evaluation {counts}")
+    check(vae_psnr > 14.0, f"the VAE did not learn: {vae_psnr:.2f} dB")
+    check(last < 0.62 * first, f"no loss progress: {first:.4f} -> {last:.4f}")
+    check(trained_psnr > floor_psnr + 1.5, f"novel-view PSNR did not improve: {floor_psnr:.2f} -> {trained_psnr:.2f}")
+    check(trained_dmae < floor_dmae, f"depth MAE did not improve: {floor_dmae:.4f} -> {trained_dmae:.4f}")
+    for key, what in (("rgb", "decoded views"), ("depth_pred", "sampled depth")):
+        got, want = (torch.as_tensor(r[0][key]) for r in (trained, plain))
+        compare(f"learn: scene 0's trained {what} (views {LEARN_VIEWS})", got, want, LEARN_PLAIN_RTOL,
+                "fp32 kernels against the kernel-off switch on the same noise, through 8 eta=1 DDIM steps and the "
+                "VAE decode", torch.float32)
+    check(plain_launches == 0, f"{plain_launches} launches under the kernel-off switch")
+    if dev.type == "cuda":
+        check(vae_counts.get("groupnorm", 0) > 0, "the VAE pretrain launched no K1")
+        for key, name in (("groupnorm", "K1"), ("transformer_block", "K3"), ("crossview", "K4")):
+            check(counts.get(key, 0) > 0, f"the trained evaluation launched no {name} ({key})")
+    log(f"  learn phase {time.perf_counter() - t_phase:.2f}s on {card}")
+    return dict(vae_psnr=vae_psnr, floor_psnr=floor_psnr, trained_psnr=trained_psnr, floor_dmae=floor_dmae,
+                trained_dmae=trained_dmae, loss_first=first, loss_last=last, counts=counts, vae_counts=vae_counts)
 
 
 def gn_timers() -> None:
@@ -2421,6 +2567,9 @@ def main() -> int:
                     help="DDIM steps of the request with the switched transformer-site forms on")
     ap.add_argument("--train-steps", type=int, default=1,
                     help="optimizer steps of the train phase (grad_accum_step calls each)")
+    ap.add_argument("--learn", action="store_true",
+                    help="after the train phase, the learning proof at tests/test_learning.py's sizes (run_learn, "
+                         "~110 s)")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
                          "route (slice), on the evaluation scene (eval) and with the switched forms on (forms), "
@@ -2543,6 +2692,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("train"):
         run_train(card, args.train_steps, profile=args.profile)
+
+    if args.learn:
+        with Phase("learn"):
+            run_learn(card)
 
     with Phase("stages"):
         crossview_stage_checks(rows)

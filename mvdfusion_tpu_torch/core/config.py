@@ -25,27 +25,24 @@ def load_yaml(path: str) -> dict:
 
 
 # ---------------------------------------------------------------- datasets
-def _objaverse_not_ported(**_):
-    raise NotImplementedError("the Objaverse loader is not ported yet (ROADMAP Queue 1: training data)")
-
-
 def _dataset_registry() -> Dict[str, Callable]:
-    from mvdfusion_tpu_torch.data.datasets import GSO, Wild
+    from mvdfusion_tpu_torch.data.datasets import GSO, Objaverse, Wild
 
     return {
         # the reference's dotted targets (configs/mvd_*.yaml)
         "dataset.gso_test.GSO": GSO,
         "dataset.wild_test.GSO": Wild,  # wild_test's class is also named GSO
-        "dataset.objaverse.Objaverse": _objaverse_not_ported,
+        "dataset.objaverse.Objaverse": Objaverse,
         # native names
         "mvdfusion_tpu.data.datasets.GSO": GSO,
         "mvdfusion_tpu.data.datasets.Wild": Wild,
-        "mvdfusion_tpu.data.datasets.Objaverse": _objaverse_not_ported,
+        "mvdfusion_tpu.data.datasets.Objaverse": Objaverse,
         "mvdfusion_tpu_torch.data.datasets.GSO": GSO,
         "mvdfusion_tpu_torch.data.datasets.Wild": Wild,
+        "mvdfusion_tpu_torch.data.datasets.Objaverse": Objaverse,
         "gso": GSO,
         "wild": Wild,
-        "objaverse": _objaverse_not_ported,
+        "objaverse": Objaverse,
     }
 
 

@@ -466,19 +466,25 @@ MVDF_API int mvdf_cv_attention(const void* qkv, void* out, int N, int V, int hea
 #define MVDF_CV_ATT(T, D)                                                                               \
   cv_attention_kernel<T, D><<<(unsigned)((items + (D <= 32 ? 4 : 2) - 1) / (D <= 32 ? 4 : 2)),          \
                               32 * (D <= 32 ? 4 : 2), 0, s>>>((const float*)qkv, (T*)out, N, V, heads, scale)
-  if (dtype == DT_BF16) {
-    if (dh == 32) MVDF_CV_ATT(bf16, 32);
-    else if (dh == 8) MVDF_CV_ATT(bf16, 8);
-    else if (dh == 16) MVDF_CV_ATT(bf16, 16);
-    else if (dh == 64) MVDF_CV_ATT(bf16, 64);
-    else return (int)cudaErrorInvalidValue;
-  } else {
-    if (dh == 32) MVDF_CV_ATT(float, 32);
-    else if (dh == 8) MVDF_CV_ATT(float, 8);
-    else if (dh == 16) MVDF_CV_ATT(float, 16);
-    else if (dh == 64) MVDF_CV_ATT(float, 64);
-    else return (int)cudaErrorInvalidValue;
+  // every head width the reference's gate can send here with 16-byte half rows: dh % 8 == 0, dh <= 64
+#define MVDF_CV_ATT_DH(T)                                                                               \
+  switch (dh) {                                                                                         \
+    case 8: MVDF_CV_ATT(T, 8); break;                                                                   \
+    case 16: MVDF_CV_ATT(T, 16); break;                                                                 \
+    case 24: MVDF_CV_ATT(T, 24); break;                                                                 \
+    case 32: MVDF_CV_ATT(T, 32); break;                                                                 \
+    case 40: MVDF_CV_ATT(T, 40); break;                                                                 \
+    case 48: MVDF_CV_ATT(T, 48); break;                                                                 \
+    case 56: MVDF_CV_ATT(T, 56); break;                                                                 \
+    case 64: MVDF_CV_ATT(T, 64); break;                                                                 \
+    default: return (int)cudaErrorInvalidValue;                                                         \
   }
+  if (dtype == DT_BF16) {
+    MVDF_CV_ATT_DH(bf16)
+  } else {
+    MVDF_CV_ATT_DH(float)
+  }
+#undef MVDF_CV_ATT_DH
 #undef MVDF_CV_ATT
   return (int)cudaGetLastError();
 }

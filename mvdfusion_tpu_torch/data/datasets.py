@@ -1,11 +1,11 @@
-"""Evaluation dataset loaders (counterpart of mvdfusion_tpu/data/datasets.py's
-GSO and Wild layouts).
+"""Dataset loaders (counterpart of mvdfusion_tpu/data/datasets.py): the GSO
+and Wild evaluation layouts and the Objaverse training renders.
 
 Host-side numpy loaders. Each scene is a dict of float32 numpy arrays in NHWC:
     {index, idx, images (S, H, W, 3), R (S, 3, 3), T (S, 3), f (S, 2),
-     c (S, 2), azimuth (S,), elevation (S,)}
-Images decode through imageio (PIL where imageio is missing) and resize
-through PIL; both are imported where they are used.
+     c (S, 2), azimuth (S,), elevation (S,) [, depths (S, H, W, 1),
+     masks (S, H, W, 1)]}
+Images decode and resize through PIL, imported where it is used.
 """
 
 from __future__ import annotations
@@ -15,20 +15,23 @@ import os
 
 import numpy as np
 
-from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
+from mvdfusion_tpu_torch.data.rigs import (
+    AZIMUTHS_16,
+    AZIMUTHS_B64,
+    ELEVATIONS_16,
+    ELEVATIONS_B64,
+    OBJAVERSE_TRAIN_RING,
+    fixed_rig,
+)
 
 
 def _imread(path: str) -> np.ndarray:
     """Read an image to float32 (H, W, C); 8- and 16-bit images are divided
     by 255 (the reference's rule, so 16-bit depth comes out in [0, 257])."""
-    try:
-        import imageio.v3 as iio
+    from PIL import Image
 
-        img = np.asarray(iio.imread(path))
-    except ImportError:
-        from PIL import Image
-
-        img = np.asarray(Image.open(path))
+    with Image.open(path) as im:
+        img = np.asarray(im)
     if img.dtype in (np.uint8, np.uint16):
         img = img.astype(np.float32) / 255.0
     else:
@@ -127,3 +130,61 @@ class Wild:
         rgba = _resize(_imread(os.path.join(self.root, self.scenes[index])), self.image_size)
         img = _composite_white(rgba)
         return _scene(index, self.scenes[index], np.repeat(img[None], self.n_views, axis=0), self.rig)
+
+
+class Objaverse:
+    """Objaverse training renders: {root}/subset_list/{subset}_{stage}.json
+    lists scene uids; {root}/{subset}/{uid}/views/ holds 64 renders
+    {i:03d}_rgb.jpg (with {i:03d}_depth.png and {i:03d}_mask.jpg) on the
+    64-view grid of data/rigs.py. fix_elevation takes the 16-view ring at
+    30deg (OBJAVERSE_TRAIN_RING), else all 64. `sample_batch_size` and the
+    other reference keys are accepted and unused (the reference reads it
+    only without fix_elevation)."""
+
+    def __init__(
+        self,
+        root: str,
+        subset: str = "400k",
+        stage: str = "train",
+        image_size: int = 256,
+        fix_elevation: bool = True,
+        load_depth: bool = False,
+        load_mask: bool = False,
+        **_,
+    ):
+        self.root = root
+        self.subset = subset
+        self.stage = stage
+        self.image_size = image_size
+        self.fix_elevation = fix_elevation
+        self.load_depth = load_depth
+        self.load_mask = load_mask
+        with open(os.path.join(root, "subset_list", f"{subset}_{stage}.json")) as fp:
+            self.scenes = json.load(fp)
+        self.R, self.T, self.f, self.c = fixed_rig(AZIMUTHS_B64, ELEVATIONS_B64)
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, index: int) -> dict:
+        scene_dir = os.path.join(self.root, self.subset, self.scenes[index], "views")
+        idxs = OBJAVERSE_TRAIN_RING if self.fix_elevation else np.arange(64)
+        read = lambda suffix, chans: np.stack([
+            _resize(_imread(os.path.join(scene_dir, f"{i:03d}_{suffix}")), self.image_size)[..., :chans] for i in idxs
+        ])
+        out = {
+            "index": index,
+            "idx": self.scenes[index],
+            "images": read("rgb.jpg", 3),
+            "R": self.R[idxs],
+            "T": self.T[idxs],
+            "f": self.f[idxs],
+            "c": self.c[idxs],
+            "azimuth": AZIMUTHS_B64[idxs].astype(np.float32),
+            "elevation": ELEVATIONS_B64[idxs].astype(np.float32),
+        }
+        if self.load_depth:
+            out["depths"] = read("depth.png", 1)
+        if self.load_mask:
+            out["masks"] = read("mask.jpg", 1)
+        return out

@@ -208,14 +208,21 @@ def scene_batch_loss(model, batch: dict, generator=None, draws=None):
         loss.backward()
         total = total + loss.detach()
         with torch.no_grad():
+            sums, adds = [], []
             for name, p in wrt:
                 if p.grad is not None:
-                    grads[name] = p.grad.float() if grads[name] is None else grads[name].add_(p.grad)
+                    if grads[name] is None:
+                        grads[name] = p.grad.float()
+                    else:
+                        sums.append(grads[name])
+                        adds.append(p.grad)
                     p.grad = None
+            if sums:
+                torch._foreach_add_(sums, adds)
     with torch.no_grad():
-        for g in grads.values():
-            if g is not None:
-                g.div_(n)
+        present = [g for g in grads.values() if g is not None]
+        if present:
+            torch._foreach_div_(present, n)
     return total / n, grads
 
 
@@ -224,29 +231,45 @@ def _optimizer_update(model, state: TrainState, tc: TrainConfig, grads: dict) ->
     fp32 mean gradient), after the skip test and the clip; refreshes the
     compute copies. Returns whether it applied."""
     opt = state.opt_state
+    names = list(grads)
+    gs = [grads[n] for n in names]
     if tc.skip_nonfinite:
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        # one flag for the whole set (the check GradScaler runs; the scale 1 leaves gs as they are)
+        found = torch.zeros(1, device=gs[0].device)
+        torch._amp_foreach_non_finite_check_and_unscale_(gs, found, torch.ones((), device=gs[0].device))
+        finite = not bool(found.item())
         opt["notfinite_count"] = 0 if finite else opt["notfinite_count"] + 1
         opt["total_notfinite"] += 0 if finite else 1
         if not finite and opt["notfinite_count"] <= _MAX_CONSECUTIVE_NONFINITE:
             return False
     if tc.grad_clip:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
         if not bool(norm < tc.grad_clip):
-            grads = {n: g / norm * tc.grad_clip for n, g in grads.items()}
+            gs = torch._foreach_div(gs, norm)
+            torch._foreach_mul_(gs, tc.grad_clip)
     lr = learning_rate(tc, opt["count"])
     opt["count"] += 1
     c1, c2 = 1 - _B1 ** opt["count"], 1 - _B2 ** opt["count"]
     params = {n: p for n, p in model.named_parameters()}
+    mus, nus, masters = ([d[n] for n in names] for d in (opt["mu"], opt["nu"], state.params))
     with torch.no_grad():
-        for n, g in grads.items():
-            mu, nu, master = opt["mu"][n], opt["nu"][n], state.params[n]
-            mu.mul_(_B1).add_(g, alpha=1 - _B1)
-            nu.mul_(_B2).addcmul_(g, g, value=1 - _B2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + _EPS) + tc.weight_decay * master
-            master.sub_(lr * u)
-            if master is not params[n]:
-                params[n].copy_(master)
+        # per element: mu = B1 mu + (1 - B1) g; nu = B2 nu + (1 - B2) g^2;
+        # master -= lr ((mu / c1) / (sqrt(nu / c2) + eps) + wd master)
+        torch._foreach_mul_(mus, _B1)
+        torch._foreach_add_(mus, gs, alpha=1 - _B1)
+        torch._foreach_mul_(nus, _B2)
+        torch._foreach_addcmul_(nus, gs, gs, value=1 - _B2)
+        u = torch._foreach_div(mus, c1)
+        den = torch._foreach_div(nus, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, _EPS)
+        torch._foreach_div_(u, den)
+        torch._foreach_add_(u, torch._foreach_mul(masters, tc.weight_decay))
+        torch._foreach_mul_(u, lr)
+        torch._foreach_sub_(masters, u)
+        copies = [(params[n], m) for n, m in zip(names, masters) if m is not params[n]]
+        if copies:
+            torch._foreach_copy_([c for c, _ in copies], [m for _, m in copies])
     return True
 
 
@@ -263,23 +286,28 @@ def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator
         loss, grads = scene_batch_loss(model, batch, generator)
         k = max(tc.grad_accum_step, 1)
         with torch.no_grad():
-            for n, acc in opt["acc"].items():
-                g = grads.get(n)
-                if g is not None:
-                    acc.add_((g - acc) / (opt["mini_step"] + 1))
-                else:
-                    acc.sub_(acc / (opt["mini_step"] + 1))
+            # the running mean: acc += (g - acc) / (i + 1), a missing gradient counting as 0
+            div = opt["mini_step"] + 1
+            got = [(acc, grads[n]) for n, acc in opt["acc"].items() if grads.get(n) is not None]
+            none = [acc for n, acc in opt["acc"].items() if grads.get(n) is None]
+            if got:
+                step = torch._foreach_sub([g for _, g in got], [a for a, _ in got])
+                torch._foreach_div_(step, div)
+                torch._foreach_add_([a for a, _ in got], step)
+            if none:
+                torch._foreach_sub_(none, torch._foreach_div(none, div))
         emit = opt["mini_step"] == k - 1
         opt["mini_step"] = (opt["mini_step"] + 1) % k
         if emit:
             _optimizer_update(model, state, tc, opt["acc"])
-            for acc in opt["acc"].values():
-                acc.zero_()
+            torch._foreach_zero_(list(opt["acc"].values()))
         if state.ema is not None:
             d = min(tc.ema_decay, (1.0 + state.step) / (10.0 + state.step))
             with torch.no_grad():
-                for n, e in state.ema.items():
-                    e.mul_(d).add_(state.params[n].to(e.dtype), alpha=1.0 - d)
+                emas = list(state.ema.values())
+                torch._foreach_mul_(emas, d)
+                torch._foreach_add_(emas, [state.params[n].to(e.dtype) for n, e in state.ema.items()],
+                                    alpha=1.0 - d)
         state.step += 1
         return loss
     finally:

@@ -383,7 +383,9 @@ def test_build_model_config_refuses_what_is_not_ported(scene_dirs):
     gso, _ = scene_dirs
     ds = tconfig.build_dataset({"dataset": {"target": "dataset.gso_test.GSO", "params": {"root": gso}}})
     assert isinstance(ds, tdata.GSO)
-    with pytest.raises(NotImplementedError, match="Objaverse"):
+    # ported: the Objaverse loader (tests/test_torch_port_data.py); a GSO root has no subset list
+    assert tconfig._dataset_registry()["objaverse"] is tdata.Objaverse
+    with pytest.raises(FileNotFoundError, match="subset_list"):
         tconfig.build_dataset({"dataset": {"target": "objaverse", "params": {"root": gso}}})
 
 

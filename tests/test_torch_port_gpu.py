@@ -284,6 +284,28 @@ def test_gpu_k4_view_attention_routes_match_plain(cuda, V):
     assert torch.equal(fused, K4.view_attention(h, w.qkv_w[0], w.qkv_b[0], V, heads))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hid,heads", [(32, 4), (64, 4), (96, 4), (160, 4), (192, 4), (224, 4), (256, 4)])
+def test_gpu_k4_standalone_attention_head_widths(cuda, dt, hid, heads):
+    """The standalone view attention at every head width dh = hid / heads in
+    8..64 (the learning proof's medium GridAttn: hid 96, 4 heads, dh 24),
+    V = 16, in fp32 and bf16, against view_attention_plain: fp32 1e-4 x
+    max(1, max|plain|), bf16 1 ulp of max|plain| and a mean of 1e-4 x
+    max|plain|."""
+    g = torch.Generator(device=cuda).manual_seed(hid)
+    V, N = 16, 257
+    qkv_w = _rand(g, cuda, dt, 3 * hid, hid, std=hid**-0.5)
+    qkv_b = _rand(g, cuda, torch.float32, 3 * hid, std=0.1)
+    h = _rand(g, cuda, dt, N * V, hid)
+    got = K4.view_attention(h, qkv_w, qkv_b, V, heads, route="standalone")
+    want = K4.view_attention_plain(h, qkv_w, qkv_b, V, heads)
+    if dt == torch.bfloat16:
+        _close_ulp(got, want)
+    else:
+        _gpu_close(got, want, dt)
+
+
 # K1's (N, C) at every GroupNorm of a UNet step (nn/unet.py), each at the
 # CFG batch of the flagship (16) or of the eval step (30), and the VAE's
 # 32^2 x 512 maps at the flagship's encode batch of 9
