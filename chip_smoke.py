@@ -108,7 +108,22 @@ Phases, each printed with elapsed seconds as it starts and ends:
               removed convs kept); one eta=0 request on quad timesteps (K1-K4
               launched, equal latents under other step noise); logs the
               file's GB and the write and load seconds, deletes the files
-  9. train    the train path (run_train): configs/train.yaml's model in
+  9. scenes   the same model runs SCENES = 2 evaluation scenes (the eval
+              phase's rig and protocol, random images from a numpy seed)
+              through one eval_scenes pass for --eval-steps steps (GridAttn
+              a scene a step, one UNet call a step over the CFG batch of
+              60), then each scene alone with the same generators; holds
+              the ground-truth fields bit-equal and the sampled ones in
+              the mean to a tenth of the gap between the two scenes, one
+              DDIM step of both ways to the forms phase's rule, naming
+              the first UNet module that differs, and the batched step
+              with the kernels against it under the kernel-off switch to
+              the same rule; K1's calls at batch 60 held to GN_STEP (the
+              kernels phase holds K1, the LayerNorm and the site GEMM at
+              that batch against their plain versions); logs s/scene, kernel
+              launches a scene and peak memory of both (with --profile,
+              the profiler's launches a step of STEPS steps of each)
+  10. train   the train path (run_train): configs/train.yaml's model in
               bf16 with random weights, its trainer section (5 targets,
               4 scenes a call, grad_accum_step 4, finetune_unet) and its
               own `objaverse` dataset target with only the root moved to
@@ -129,7 +144,18 @@ Phases, each printed with elapsed seconds as it starts and ends:
               flagship shape in bf16 against the plain version's autograd
               (bit-equal, or 1 bf16 ulp where its backward adds with
               atomics); with --profile, STEPS more calls by kernel
-  10. learn   with --learn only (about 110 s, most of it the host's
+  11. dp      data parallelism (run_dp, parallel.spawn): configs/train.yaml's
+              model in bf16 at grad_accum_step 1 takes one optimizer step
+              on 2 scenes, first on 2 ranks sharing the card over gloo,
+              one scene each, the draws keyed on the scene's position,
+              then on rank 0 alone with both scenes; holds the loss, the
+              gradient the optimizer read and the masters to the one-rank
+              step (DP_* tolerances) and the ranks to each other bit for
+              bit; then one rank at world size 1 (NCCL: its init and an
+              all-reduce on the card); logs each
+              all-reduce's bytes and seconds, the step's seconds and peak
+              memory a rank
+  12. learn   with --learn only (about 110 s, most of it the host's
               launches of 260 train steps): tests/test_learning.py's
               proof through tools/overfit_synthetic.py (run_learn): the
               tiny model in fp32, 2 synthetic scenes, 120 VAE steps, 260
@@ -138,7 +164,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               and K4 in the trained evaluation, and one scene's trained
               evaluation against the kernel-off switch on the same noise
               (LEARN_PLAIN_RTOL)
-  11. stages  K4 and K4b traced by kernel name (crossview_stages): device
+  13. stages  K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -155,6 +181,7 @@ import contextlib
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -187,6 +214,7 @@ VAE_LAUNCHES = {
 }
 VAE_KERNELS = ("groupnorm", "groupnorm_tiled", "gn_fold_affine", "conv3x3", "attention")
 EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
+SCENES = 2  # scenes of the scenes phase's one sampler pass
 # the flagship UNet's transformer sites per apply_model_cfg: 8 at 32^2 (C=320),
 # 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
 # every gate)
@@ -605,6 +633,11 @@ def kernel_checks():
     rows.update(crossview_checks(rnd, dev))
     rows.update(vae_kernel_checks(rnd))
     rows.update(gemm_checks(rnd))
+    # K1 and the LayerNorm at the scenes phase's CFG batch of 60 (the GEMM's
+    # rows at that batch are GEMM_ROWS' last), after every other row: the
+    # rows above keep the inputs they had before these were added
+    rows.update(groupnorm_checks(rnd, ("scenes",)))
+    rows.update(layernorm_checks(rnd, ("scenes",)))
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -627,20 +660,22 @@ GN_STEP = {
     (16, 1280, "silu"): 11, (16, 1280, "none"): 2, (16, 2560, "silu"): 3,
 }
 GN_EPS = {"silu": 1e-5, "none": 1e-6}
-GN_BATCH = {"slice": 16, "eval": 2 * EVAL_TARGETS}  # the UNet's CFG batch on each path
+GN_BATCH = {"slice": 16, "eval": 2 * EVAL_TARGETS, "scenes": 2 * SCENES * EVAL_TARGETS}  # the UNet's CFG batch on each path
+GN_PATH = {"slice": "flagship", "eval": "eval", "scenes": f"{SCENES}-scene eval"}
 
 
 def gn_inputs(rnd, B, N, C, dt):
     return rnd(B, N, C, dt=dt) * 3 + 1, 1 + rnd(C, std=0.1), rnd(C, std=0.1)
 
 
-def groupnorm_checks(rnd):
+def groupnorm_checks(rnd, phases=("slice", "eval")):
     """K1 against its plain version: fp32 at a small shape (1e-4 x max(1,
     max|plain|)); bf16 at every (B, N, C, act) of the flagship step (B=16)
-    and the eval step (B=30), 1 bf16 ulp of max|plain| and a mean of 3e-4 x
+    the eval step (B=30) and the scenes phase's step (B=60), 1 bf16 ulp of max|plain| and a mean of 3e-4 x
     max|plain|, a second launch bit-equal; each timed in device time beside
     F.group_norm and the plain version. Logs K1's device ms a step: the rows'
-    times weighted by GN_STEP."""
+    times weighted by GN_STEP. `phases`: the GN_BATCH entries to check (the
+    fp32 case and the summary row come with "slice")."""
     import torch
     import torch.nn.functional as F
 
@@ -649,11 +684,13 @@ def groupnorm_checks(rnd):
     bf = torch.bfloat16
     rows, per_step = {}, {}
     log(" K1 groupnorm")
-    x, w, b = gn_inputs(rnd, 2, 64, 96, torch.float32)
-    for act, eps in GN_EPS.items():
-        compare(f"groupnorm (2, 64, 96) act={act} eps={eps}", K1.launch_group_norm(x, w, b, 32, eps, act),
-                K1.group_norm_plain(x, w, b, 32, eps, act), 1e-4, "fp32 sum order", torch.float32)
-    for phase, B in GN_BATCH.items():
+    if "slice" in phases:
+        x, w, b = gn_inputs(rnd, 2, 64, 96, torch.float32)
+        for act, eps in GN_EPS.items():
+            compare(f"groupnorm (2, 64, 96) act={act} eps={eps}", K1.launch_group_norm(x, w, b, 32, eps, act),
+                    K1.group_norm_plain(x, w, b, 32, eps, act), 1e-4, "fp32 sum order", torch.float32)
+    for phase in phases:
+        B = GN_BATCH[phase]
         total = 0.0
         for (N, C, act), n in GN_STEP.items():
             x, w, b = gn_inputs(rnd, B, N, C, bf)
@@ -682,8 +719,10 @@ def groupnorm_checks(rnd):
                               shape=f"x ({B}, {N}, {C}) bf16, 32 groups, eps {eps}, act {act}",
                               phase=phase, launch_key=(B, N, C, act))
         per_step[phase] = total
-        log(f"  K1 a {'flagship' if phase == 'slice' else 'eval'} step (CFG batch {B}): {total:.4f} ms in "
+        log(f"  K1 a {GN_PATH[phase]} step (CFG batch {B}): {total:.4f} ms in "
             f"{sum(GN_STEP.values())} calls")
+    if "slice" not in phases:
+        return rows
     r = dict(rows["groupnorm 16x1024x320 none"], name="groupnorm")
     for key in ("phase", "launch_key", "per_step", "host_ms"):
         r.pop(key)
@@ -693,16 +732,20 @@ def groupnorm_checks(rnd):
 
 # the sites' LayerNorm: LN1 and LN3 of the 16 split sites a step at 32^2
 # (16 x 1024 rows of C=320) and 16^2 (16 x 256 of C=640), and of the forms
-# route's 8 big-C sites (16 x 64 of C=1280)
-LN_ROWS = ((16384, 320, "slice"), (4096, 640, "slice"), (1024, 1280, "forms"))
+# route's 8 big-C sites (16 x 64 of C=1280); the scenes phase's CFG batch of
+# 60 at 32^2 and 16^2
+_B60 = GN_BATCH["scenes"]
+LN_ROWS = ((16384, 320, "slice"), (4096, 640, "slice"), (1024, 1280, "forms"), (_B60 * 1024, 320, "scenes"),
+           (_B60 * 256, 640, "scenes"))
 LN_PER_STEP = 2 * SITES_PER_LEVEL
 
 
-def layernorm_checks(rnd):
+def layernorm_checks(rnd, phases=("slice", "forms")):
     """block.cu's LayerNorm against _ln_plain at the sites' widths in bf16:
     rows at the residual stream's scale (mean 4, std 1) and constant rows,
     1 bf16 ulp of max|plain| and a mean of 3e-4 x max|plain|, a second launch
-    bit-equal; timed in device time beside F.layer_norm."""
+    bit-equal; timed in device time beside F.layer_norm. `phases`: the
+    LN_ROWS to check, by their phase."""
     import torch
     import torch.nn.functional as F
 
@@ -711,7 +754,7 @@ def layernorm_checks(rnd):
     bf = torch.bfloat16
     rows, total = {}, 0.0
     log(" K3 layernorm")
-    for M, C, phase in LN_ROWS:
+    for M, C, phase in (r for r in LN_ROWS if r[2] in phases):
         x = torch.cat([rnd(M - 8, C) + 4, torch.full((8, C), 2.5, device="cuda")]).to(bf)
         w, b = 1 + rnd(C, std=0.1), rnd(C, std=0.1)
         name = f"layernorm {M}x{C}"
@@ -733,7 +776,8 @@ def layernorm_checks(rnd):
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                           shape=f"x ({M}, {C}) bf16, mean 4 std 1, 8 constant rows", phase=phase,
                           launch_key=(M, C))
-    log(f"  the sites' LayerNorm a flagship step: {total:.4f} ms in {2 * LN_PER_STEP} calls")
+    if "slice" in phases:
+        log(f"  the sites' LayerNorm a flagship step: {total:.4f} ms in {2 * LN_PER_STEP} calls")
     return rows
 
 
@@ -1148,8 +1192,9 @@ def vae_kernel_checks(rnd):
 # (M, N, K, epilogue, phase, the TPU kernel whose product it is). M: the
 # flagship's CFG batch 16 x 1024 (32^2) and x 256 (16^2) tokens, the DiT's
 # 8 views x 8192 points and the 8192 pooled points; the eval path's CFG
-# batch 30 and 15 views x 15360 points; the forms route's C=1280 8^2 sites
-# (16 x 64). N is the weight's rows: GEGLU's packed value and gate rows are
+# batch 30 and 15 views x 15360 points; the scenes phase's CFG batch 60 at
+# the UNet's sites (its GridAttn runs a scene at a time, at the eval path's
+# shapes); the forms route's C=1280 8^2 sites (16 x 64). N is the weight's rows: GEGLU's packed value and gate rows are
 # twice the inner width. Epilogues as the path runs them: "res" the out-projection's
 # h0 + attn2 (a row per batch element at 32^2, a map at 16^2 and 8^2),
 # "ff" FF out + h2, "ff1" the big-C form's one rounding, "gate" the DiT's
@@ -1171,6 +1216,11 @@ GEMM_ROWS = [
           (V * 1024, 768, 256, "none", _DIT))),
     (1024, 1280, 1280, "res_map", "forms", _BIGC), (1024, 10240, 1280, "geglu", "forms", _BIGC),
     (1024, 1280, 5120, "ff1", "forms", _BIGC),
+    *((M, N, K, epi, "scenes", src) for M, N, K, epi, src in (
+        (_B60 * 1024, 320, 320, "res_row", _SITE), (_B60 * 1024, 960, 320, "qkv", _SITE),
+        (_B60 * 1024, 2560, 320, "geglu", _FF), (_B60 * 1024, 320, 1280, "ff", _FF),
+        (_B60 * 256, 640, 640, "res_map", _SITE), (_B60 * 256, 1920, 640, "qkv", _SITE),
+        (_B60 * 256, 5120, 640, "geglu", _FF), (_B60 * 256, 640, 2560, "ff", _FF))),
 ]
 
 
@@ -1870,6 +1920,223 @@ def run_weights(card: str, device: str = "cuda", cfg=None, model=None, out_dir=N
 
 
 # ---------------------------------------------------------------- phase 9
+# The SCENES scenes of the scenes phase in one sampler pass, batched, against
+# one at a time. On the CPU the two are bit-equal (the port's own tests, in
+# bf16 too); on the card cuBLAS, cuDNN and K1 pick their kernels for a CFG
+# batch of 60 there and 30 here, so they round apart. One sampler step on
+# the same inputs (latents after one DDIM step) is held twice to the forms
+# phase's one-step rule, SCENES_STEP_RTOL x max(1, max|reference|): the
+# batched step against each scene's step alone, and the batched step with
+# the kernels against the same batched step under the kernel-off switch
+# (every kernel of the UNet at the batch of 60 against its plain version,
+# with the K1, LayerNorm and site GEMM rows of the kernels phase at that
+# batch). After --eval-steps eta=1 steps the random-weight model has
+# amplified the roundings element by element (measured on an H100 at 10
+# steps: max|diff| 5.4e-2 on pred_rgb, 0.72 on one pred_depth element of
+# [0, 1], means 4.7e-3 and 7.1e-3; PERF.md), so no bound on the max of the
+# sampled fields holds below their range: they are held in the mean, their
+# mean |batched - alone| at most SCENES_MIX_FRACTION of the mean |scene 0 -
+# scene 1| alone, the gap a scene reading its batch mate's conditioning
+# would open. The ground truth (prepare_batch and the decode run once a
+# scene either way) is held bit-equal.
+SCENES_STEP_RTOL = 3e-2
+SCENES_MIX_FRACTION = 0.1
+SCENE_FIELDS_EXACT = ("gt_rgb", "gt_depth", "input_depth")
+
+
+def gso_scenes(model, n: int, dev):
+    """`n` in-memory scenes as the eval phase writes one: the 16-view GSO rig,
+    random images from a numpy seed, 1 input and 15 target views."""
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
+
+    ls = model.cfg.latent_size
+    IMG = ls * 2 ** (len(model.cfg.vae_ch_mult) - 1)
+    R, T, f, c = fixed_rig(AZIMUTHS_16, ELEVATIONS_16)
+    images = np.random.default_rng(SEED).uniform(size=(n, 16, IMG, IMG, 3)).astype(np.float32)
+    sel = np.linspace(0, 15, 1 + EVAL_TARGETS).astype(np.int64)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    rig = [on(np.stack([a] * n)) for a in (R, T, f, c)]
+    return [on(images), *rig, on(sel[:1]), on(sel[1:])]
+
+
+def run_scenes(steps: int, card: str, device: str = "cuda", cfg=None, model=None, profile: int = 0) -> dict:
+    """SCENES evaluation scenes in one eval_scenes pass (one UNet call a step
+    over their CFG batch of 2 x SCENES x 15), then each alone with the same
+    generators; one sampler step of both ways on the same inputs, with the
+    first UNet module whose output differs, and the batched step against
+    its kernel-off twin. Holds them as the SCENES_* comment says; logs
+    seconds a scene, launches a scene and peak memory of the batched pass
+    and of one at a time. Returns the batched pass's launches with K1's,
+    the LayerNorm's and the GEMM's by shape (empty on the CPU). `device`/
+    `cfg` let it be rehearsed on the CPU at the tiny config."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.pipeline.eval import eval_scenes
+
+    dev = torch.device(device)
+    model = model if model is not None else build_model(device, cfg)
+    scenes = gso_scenes(model, SCENES, dev)
+    images, R, T, f, c, ii, ti = scenes
+    gen = lambda n: torch.Generator(device=dev).manual_seed(SEED + 10 + n)
+    runs = {}
+    for mode in ("batched", "alone"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        timings, outs = [], []
+        parts = [list(range(SCENES))] if mode == "batched" else [[n] for n in range(SCENES)]
+        for part in parts:
+            outs.append(eval_scenes(model, images[part], R[part], T[part], f[part], c[part], ii, ti, 2.5,
+                                    num_steps=steps, generators=[gen(n) for n in part], timings=timings))
+        out = {k: torch.cat([getattr(o, k) for o in outs]) for k in outs[0]._fields}
+        seconds = sum(sum(t.values()) for t in timings)
+        runs[mode] = dict(out=out, seconds=seconds, sample=sum(t["sample"] for t in timings),
+                          launches=dict(_lib.LAUNCHES), gn_shapes=dict(_lib.GN_SHAPES),
+                          shapes={**_lib.GEMM_SHAPES, **_lib.GN_SHAPES, **_lib.LN_SHAPES},
+                          peak=torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan"))
+    got, want = runs["batched"]["out"], runs["alone"]["out"]
+    B, ls = EVAL_TARGETS, model.cfg.latent_size
+    check(tuple(got["pred_depth"].shape) == (SCENES, B, ls, ls, 1), f"pred_depth {tuple(got['pred_depth'].shape)}")
+    check(all(bool(torch.isfinite(v).all()) for v in got.values()), "non-finite output")
+    step, plain_gap = scene_step_gap(model, scenes, steps)
+    worst = {}
+    for k in got:
+        a, b = got[k].float(), want[k].float()
+        diff = (a - b).abs()
+        top = b.abs().max().item()
+        worst[k], mean = diff.max().item(), diff.mean().item()
+        if k in SCENE_FIELDS_EXACT:
+            ok, rule = worst[k] == 0, "bit-equal"
+        else:
+            gap = (b[0] - b[1]).abs()
+            mix = gap.mean().item()
+            ok, rule = mean <= SCENES_MIX_FRACTION * mix, (f"mean held to {SCENES_MIX_FRACTION:g} x mean|scene 0 - "
+                                                           f"scene 1| {mix:.3e} (max|scene 0 - scene 1| "
+                                                           f"{gap.max().item():.3e}: no max bound)")
+        log(f"  {k}: max|batched - alone| {worst[k]:.3e} ({worst[k] / bf16_ulp(torch.tensor(top)).item():.1f} bf16 "
+            f"ulps of max|alone| {top:.3e}), mean {mean:.3e}, {(diff == 0).float().mean().item():.2%} of elements "
+            f"bit-equal; {rule} -> {'ok' if ok else 'MISS'}")
+        check(ok, f"scenes: {k} batched differs from one at a time ({worst[k]:.3e}, mean {mean:.3e})")
+    b, a = runs["batched"], runs["alone"]
+    counts = {}
+    if dev.type == "cuda":
+        per = lambda m, key: runs[m]["launches"].get(key, 0)
+        check(per("batched", "crossview_two_phase") == SCENES * steps and per("alone", "crossview_two_phase")
+              == SCENES * steps, "GridAttn (K4b) did not run once a scene a step")
+        check(per("batched", "transformer_block") * SCENES == per("alone", "transformer_block") > 0,
+              "the batched pass did not run the UNet's sites once for all scenes")
+        check_gn_shapes(b["gn_shapes"], GN_BATCH["scenes"], steps)
+        counts = {**b["launches"], **b["shapes"]}
+        if profile:
+            profile_scene_steps(model, scenes, profile)
+    by_kernel = lambda m: ", ".join(f"{k} {v / SCENES:g}" for k, v in sorted(runs[m]["launches"].items()))
+    log(f"  launches a scene, batched: {by_kernel('batched')}; one at a time: {by_kernel('alone')}")
+    log(f"  scenes: {SCENES} x {B} target views, {steps} steps: batched {b['seconds'] / SCENES:.3f} s/scene "
+        f"({b['sample'] / (SCENES * steps):.4f} s/step a scene), one at a time {a['seconds'] / SCENES:.3f} s/scene "
+        f"({a['sample'] / (SCENES * steps):.4f}); kernel launches a scene {sum(b['launches'].values()) / SCENES:.1f} "
+        f"against {sum(a['launches'].values()) / SCENES:.1f}; peak memory {b['peak']:.2f} against {a['peak']:.2f} "
+        f"GiB; one step's gap {step:.3e}, batched with the kernels against without {plain_gap:.3e}; on {card}")
+    return dict(counts=counts, worst=worst, step=step, plain_gap=plain_gap)
+
+
+def scene_step_gap(model, scenes, steps: int) -> tuple:
+    """One sampler step (apply_model_cfg_scenes and ddim_step at the
+    schedule's first timestep) of the SCENES scenes together against each
+    alone, and against the same batched call under the kernel-off switch,
+    on the same latents, jitter and noise; the latents held to
+    SCENES_STEP_RTOL x max(1, max|reference|) both times. Logs the first
+    UNet module (in call order) whose output for a scene differs between
+    together and alone. Returns the two max|diff|."""
+    import torch
+
+    from mvdfusion_tpu_torch.core.schedule import ddim_step, make_ddim_schedule
+    from mvdfusion_tpu_torch.ops import _lib
+
+    images, R, T, f, c, ii, ti = scenes
+    cfg, dev = model.cfg, images.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    ls, B = cfg.latent_size, ti.shape[0]
+    x = torch.randn(SCENES, B, ls, ls, 5, generator=g, device=dev)
+    jitter = torch.randn(SCENES, B, ls, ls, cfg.n_pts_per_ray, generator=g, device=dev)
+    noise = torch.randn(SCENES, B, ls, ls, 5, generator=g, device=dev)
+    ddim = make_ddim_schedule(cfg.timesteps, steps, cfg.linear_start, cfg.linear_end, device=dev)
+    t = ddim.timesteps[steps - 1].expand(B)
+    seen, calls = {}, []  # module name -> its outputs in call order; the names in first-call order
+
+    def hook(name):
+        def record(module, args, out):
+            if isinstance(out, torch.Tensor):
+                calls.append(name) if name not in seen else None
+                seen.setdefault(name, []).append(out.detach())
+        return record
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in model.unet.named_modules() if n]
+    with torch.no_grad():
+        try:
+            prepared = [model.prepare_batch(images[n], R[n], T[n], f[n], c[n], ii, ti)[1:] for n in range(SCENES)]
+            cams, in_lat, in_cams, clip_v = zip(*prepared)
+            batched = lambda: model.apply_model_cfg_scenes(x, cams, in_lat, in_cams, torch.stack(clip_v), t, 2.5,
+                                                           jitter)
+            both = batched()
+            alone = torch.stack([model.apply_model_cfg(x[n], *prepared[n], t, 2.5, jitter[n])
+                                 for n in range(SCENES)])
+        finally:
+            for h in hooks:
+                h.remove()
+        _lib.reset_launches()
+        with _lib.plain_versions():
+            both_plain = batched()
+        check(not _lib.LAUNCHES, f"kernels launched under the kernel-off switch: {dict(_lib.LAUNCHES)}")
+    for name in calls:  # the batched call's rows [cond of each scene | null of each scene], B rows a scene
+        outs = seen[name]
+        if len(outs) != 1 + SCENES or outs[0].shape[0] != 2 * SCENES * B:
+            continue
+        rows = lambda n: [*range(n * B, (n + 1) * B), *range((SCENES + n) * B, (SCENES + n + 1) * B)]
+        gap = max((outs[0][rows(n)].float() - outs[1 + n].float()).abs().max().item() for n in range(SCENES))
+        if gap > 0:
+            log(f"  the first UNet module whose output differs, together against alone: {name} "
+                f"{type(model.unet.get_submodule(name)).__name__} {tuple(outs[0].shape)}, max|diff| {gap:.3e}")
+            break
+    step = lambda eps: ddim_step(ddim, x, eps, steps - 1, noise)[0]
+    at = f"latents after one DDIM step (t={int(t[0])}), {SCENES} scenes together"
+    together = compare(f"{at} against each alone", step(both), step(alone), SCENES_STEP_RTOL,
+                       "the forms phase's one-step rule: bf16 rounding at other points (cuBLAS, cuDNN and K1 "
+                       "kernels picked per batch)", cfg.dtype)
+    plain = compare(f"{at}, the kernels against the kernel-off switch (CFG batch {2 * SCENES * B})", step(both),
+                    step(both_plain), SCENES_STEP_RTOL, "the forms phase's one-step rule: bf16 rounding at other "
+                    "points in every kernel of the UNet", cfg.dtype)
+    return together, plain
+
+
+def profile_scene_steps(model, scenes, steps: int) -> None:
+    """torch.profiler's count of kernel launches a step a scene: `steps`
+    sampler steps of the SCENES scenes batched, then of one scene alone."""
+    import torch
+
+    from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample_scenes
+
+    images, R, T, f, c, ii, ti = scenes
+    with torch.no_grad():
+        prepared = [model.prepare_batch(images[n], R[n], T[n], f[n], c[n], ii, ti)[1:] for n in range(SCENES)]
+    for n in (SCENES, 1):
+        cams, in_lat, in_cams, clip_v = zip(*prepared[:n])
+        g = [torch.Generator(device="cuda").manual_seed(SEED + k) for k in range(n)]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ddim_sample_scenes(model, cams, in_lat, in_cams, torch.stack(clip_v), 2.5, num_steps=steps, generators=g,
+                               feed_prev_depth=model.cfg.feed_prev_depth)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summarize_profile(prof, wall, steps, f"{n} scene(s) in one sampler pass", "step", top=8)
+
+
+# ---------------------------------------------------------------- phase 10
 TRAIN_CONFIG = HERE / "configs" / "train.yaml"
 TRAIN_SCENES = 2  # Objaverse-layout scenes the phase writes: no render ships
 # the train phase's tolerances (PERF.md): one micro-step under
@@ -2255,7 +2522,259 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
     return dict(counts=counts, gap=gap, numerics=res, loader_s=loads)
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
+DP_RANKS = 2  # ranks sharing the card over gloo (NCCL refuses two ranks on one device)
+DP_VIEWS = 16  # the GSO rig's views; 1 input and configs/train.yaml's 5 targets drawn from them
+# two ranks, one scene each, against one rank with both, on the same draws.
+# The loss (the fp32 mean of the two scenes' losses on both sides) within
+# DP_LOSS_RTOL of its value: about 8 fp32 ulps; measured bit-equal on an
+# H100 (PERF.md). The gradient the optimizer reads (the fp32 mean of the
+# two scenes' gradients) within DP_GRAD_RTOL x its max: the backward
+# kernels that add with atomics round apart; measured 1.9e-6 and 7.6e-6 of
+# max|g| 0.3994 (4.8e-6 and 1.9e-5 of it), so 5x room over the larger. A
+# half-batch or unreduced step moves the gradient by the two scenes' gap,
+# O(max|g|). The masters element by element: AdamW's first step moves a
+# master by lr x (g/(|g| + eps) + wd x master) (configs/train.yaml sets no
+# clip), so the two steps may differ
+# by lr x |g/(|g|+eps) - g'/(|g'|+eps)| for the two gradients g, g' the
+# element read (largest where |g| is near eps), plus the update's roundings
+# (DP_UPDATE_ULPS units of 2^-24 of lr) and the subtraction's (1 ulp of the
+# master); any other difference (another lr, step count, gradient) shows.
+DP_LOSS_RTOL = 1e-6
+DP_GRAD_RTOL = 1e-4
+DP_UPDATE_ULPS = 8
+
+
+def _checksum(t) -> int:
+    """An exact fingerprint of a tensor's bits (their int32 words summed, each
+    weighted by its position modulo a prime)."""
+    import torch
+
+    words = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+    weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return int((words * weights).sum())
+
+
+def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
+    """One train_step of the dp phase: configs/train.yaml's model (bf16
+    towers; `tiny`: the tiny config), its trainer section at grad_accum_step
+    1, random weights from SEED; the scenes at positions `mine` of DP_RANKS
+    scenes of random images on the GSO rig, each with a view split and
+    p_losses draws keyed on its position (as cli/train.py keys them). With
+    `reduce` the trainer averages over the process group, its all-reduces
+    timed; without, the step is one rank's alone. Returns the loss, the
+    gradient the optimizer read and the trainable masters after the step
+    (host copies), with their fingerprints, the all-reduces and the step's
+    seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mvdfusion_tpu_torch import parallel
+    from mvdfusion_tpu_torch.core.config import build_model_config, build_train_config, load_yaml
+    from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
+    from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, randomize_
+    from mvdfusion_tpu_torch.pipeline import trainer
+
+    raw = load_yaml(str(TRAIN_CONFIG))
+    mcfg = build_model_config(raw)
+    mcfg = mcfg.tiny() if tiny else mcfg
+    tc = dataclasses.replace(build_train_config(raw), grad_accum_step=1)
+    n_targets = int(raw["trainer"]["train_batch_size"])
+    IMG = mcfg.latent_size * 2 ** (len(mcfg.vae_ch_mult) - 1)
+    rng = np.random.default_rng(SEED)
+    images = rng.uniform(size=(DP_RANKS, DP_VIEWS, IMG, IMG, 3)).astype(np.float32)
+    perms = [rng.permutation(DP_VIEWS) for _ in range(DP_RANKS)]
+    R, T, f, c = fixed_rig(AZIMUTHS_16, ELEVATIONS_16)
+    on = lambda a: torch.as_tensor(np.stack(a), device=dev)
+    n = len(mine)
+    batch = dict(images=on([images[p] for p in mine]), R=on([R] * n), T=on([T] * n), f=on([f] * n),
+                 c=on([c] * n), input_idx=on([perms[p][:1] for p in mine]),
+                 target_idx=on([perms[p][1 : 1 + n_targets] for p in mine]))
+    model = randomize_(ViewFusion(mcfg, device=dev), seed=SEED)
+    state = trainer.init_train_state(model, tc)
+    draws = [model.loss_draws(n_targets, dev, torch.Generator(device=dev).manual_seed(SEED + 100 + p)) for p in mine]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reduced, seen = [], []
+    reduce0, update0 = parallel.all_reduce_mean_, trainer._optimizer_update
+
+    def timed_reduce(tensors, *a, **kw):
+        tensors = list(tensors)
+        sync()
+        t0 = time.perf_counter()
+        reduce0(tensors, *a, **kw)
+        sync()
+        reduced.append(dict(bytes=sum(t.nbytes for t in tensors), tensors=len(tensors), s=time.perf_counter() - t0))
+
+    def spy(model, state, tc, grads):
+        seen.append(({n: g.detach().to("cpu", copy=True) for n, g in grads.items()},  # the card holds two ranks
+                     [_checksum(g) for g in grads.values()]))
+        return update0(model, state, tc, grads)
+
+    parallel.all_reduce_mean_ = timed_reduce if reduce else (lambda tensors, *a, **kw: None)
+    trainer._optimizer_update = spy
+    try:
+        sync()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(model, state, batch, tc, draws=draws)
+        sync()
+        step_s = time.perf_counter() - t0
+    finally:
+        parallel.all_reduce_mean_, trainer._optimizer_update = reduce0, update0
+    grads, prints = seen[0]
+    masters = {k: state.params[k].detach() for k in grads}
+    prints += [_checksum(m) for m in masters.values()]
+    return dict(loss=float(loss), grads=grads, masters={k: m.to("cpu", copy=True) for k, m in masters.items()},
+                prints=prints, reduces=reduced, step_s=step_s, lr=trainer.learning_rate(tc, 0))
+
+
+def dp_rank(device: str, tiny: bool, out: str) -> None:
+    """One of DP_RANKS ranks of the dp phase (parallel.spawn), one scene each
+    through dp_step, the gradient averaged over the ranks. Rank 0 then frees
+    the card, takes the same step alone on both scenes (the comparison) and
+    writes `out` (JSON): the backend, the all-reduces' bytes and seconds,
+    the step's seconds, peak memory, whether the ranks' gradients and
+    masters agree bit for bit, and the comparison."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from mvdfusion_tpu_torch import parallel
+    from mvdfusion_tpu_torch.pipeline import trainer
+
+    dev = parallel.init_distributed(device)
+    mesh = parallel.make_mesh(device=dev)
+    cuda = dev.type == "cuda"
+    per = DP_RANKS // mesh.world
+    mine = range(mesh.rank * per, (mesh.rank + 1) * per)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    got = dp_step(dev, tiny, mine, reduce=True)
+    prints = parallel.gather_objects(got["prints"])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    backend = dist.get_backend()
+    parallel.barrier()
+    if mesh.rank != 0:
+        return
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    ref = dp_step(dev, tiny, range(DP_RANKS), reduce=False)
+    g_err = g_top = m_err = m_ratio = 0.0
+    g_same = m_same = numel = 0
+    lr, eps = got["lr"], trainer._EPS
+    for k, g in got["grads"].items():
+        rg, gm, rm = ref["grads"][k], got["masters"][k], ref["masters"][k]
+        g_err = max(g_err, (g - rg).abs().max().item())
+        g_top = max(g_top, rg.abs().max().item())
+        m_err = max(m_err, (gm - rm).abs().max().item())
+        g_same += int((g == rg).sum())
+        apart = gm != rm
+        m_same += g.numel() - int(apart.sum())
+        numel += g.numel()
+        if apart.any():  # the masters' gap against the one the two gradients explain (DP_* comment)
+            a, b, w = g[apart].double(), rg[apart].double(), rm[apart]
+            explained = lr * (a / (a.abs() + eps) - b / (b.abs() + eps)).abs()
+            ulp = (torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()).double()
+            allow = explained + lr * DP_UPDATE_ULPS * 2.0**-24 + ulp
+            m_ratio = max(m_ratio, ((gm[apart] - w).double().abs() / allow).max().item())
+    info = dict(world=mesh.world, backend=backend, reduces=got["reduces"], step_s=got["step_s"], loss=got["loss"],
+                peak_gib=peak, ranks_agree=all(p == prints[0] for p in prints), trainable=len(got["grads"]),
+                numel=numel, lr=got["lr"], loss_one=ref["loss"], step_s_one=ref["step_s"], grad_err=g_err,
+                grad_top=g_top, master_err=m_err, master_ratio=m_ratio, grad_same=g_same / numel,
+                master_same=m_same / numel)
+    with open(out, "w") as fp:
+        json.dump(info, fp)
+
+
+def nccl_rank(numel: int, out: str) -> None:
+    """A rank at world size 1 on the card: init_distributed takes NCCL (one
+    local rank, one card); all_reduce_mean_ of `numel` fp32 elements in
+    tensors of the site GEMM's (1280, 5120) size, timed and held bit-equal
+    (a mean over one rank); writes `out` (JSON)."""
+    import torch
+    import torch.distributed as dist
+
+    from mvdfusion_tpu_torch import parallel
+
+    dev = parallel.init_distributed("cuda")
+    sizes = [1280 * 5120] * (numel // (1280 * 5120)) + [numel % (1280 * 5120)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tensors = [torch.randn(n, generator=g, device=dev) for n in sizes if n]
+    want = [t.clone() for t in tensors]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.all_reduce_mean_(tensors)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with open(out, "w") as fp:
+        json.dump(dict(backend=dist.get_backend(), bytes=4 * numel, tensors=len(tensors), s=times,
+                       equal=all(torch.equal(a, b) for a, b in zip(tensors, want))), fp)
+
+
+def run_dp(card: str, device: str = "cuda", tiny: bool = False) -> dict:
+    """The dp phase: DP_RANKS ranks with one scene each (gloo: they share the
+    card), then rank 0 alone with both scenes; holds the loss, the gradient
+    and the masters of the first to the second (DP_* tolerances) and the
+    ranks to each other (bit-equal). On the card, then one rank at world
+    size 1 (NCCL: its init and an all-reduce of the accumulator's bytes run
+    there). `device`/`tiny` let it be rehearsed on the CPU (gloo, no NCCL
+    rank)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mvdfusion_tpu_torch import parallel
+
+    if device == "cuda":  # the ranks share the card with this process: hand back its cached blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card before the ranks start")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.spawn(dp_rank, DP_RANKS, (device, tiny, os.path.join(tmp, "dp.json")))
+        log(f"  {DP_RANKS} ranks and the comparison: {time.perf_counter() - t0:.1f}s with the processes' start and "
+            f"the models' builds")
+        res = json.loads((Path(tmp) / "dp.json").read_text())
+        if device == "cuda":
+            parallel.spawn(nccl_rank, 1, (res["numel"], os.path.join(tmp, "nccl.json")))
+            res["nccl"] = json.loads((Path(tmp) / "nccl.json").read_text())
+    for r in res["reduces"]:
+        log(f"  {DP_RANKS} ranks ({res['backend']}): all-reduce of {r['tensors']} tensors, {r['bytes']} bytes "
+            f"({r['bytes'] / 2**30:.3f} GiB) in {r['s']:.4f} s ({r['bytes'] / max(r['s'], 1e-9) / 1e9:.2f} GB/s), "
+            f"on {card}")
+    log(f"  {DP_RANKS} ranks: train_step {res['step_s']:.3f} s (1 scene a rank, the first call), loss "
+        f"{res['loss']:.6f}, peak memory {res['peak_gib']:.2f} GiB a rank, {res['trainable']} trainable leaves "
+        f"({res['numel']} elements); ranks bit-equal: {res['ranks_agree']}; rank 0 alone on both scenes: "
+        f"{res['step_s_one']:.3f} s, on {card}")
+    loss_gap = abs(res["loss"] - res["loss_one"]) / abs(res["loss_one"])
+    log(f"  {DP_RANKS} ranks against one rank with both scenes: loss {res['loss']:.6f} against {res['loss_one']:.6f} "
+        f"(gap {loss_gap:.3e}, tolerance {DP_LOSS_RTOL:g}); gradient max|diff| {res['grad_err']:.3e} against "
+        f"{DP_GRAD_RTOL:g} x max|g| {res['grad_top']:.3e} = {DP_GRAD_RTOL * res['grad_top']:.3e}, "
+        f"{res['grad_same']:.4%} bit-equal; masters max|diff| {res['master_err']:.3e}, at most "
+        f"{res['master_ratio']:.3f} of the gap the two gradients and the roundings explain (lr {res['lr']:g}), "
+        f"{res['master_same']:.4%} bit-equal")
+    check(res["backend"] == "gloo", f"{DP_RANKS} ranks on one device took {res['backend']}, not gloo")
+    check(res["ranks_agree"], "the ranks' gradients or masters differ after the step")
+    check(loss_gap <= DP_LOSS_RTOL, f"dp: the loss differs from one rank's ({loss_gap:.3e})")
+    check(res["grad_top"] > 0 and res["grad_err"] <= DP_GRAD_RTOL * res["grad_top"],
+          f"dp: the gradient differs ({res['grad_err']:.3e}, max|g| {res['grad_top']:.3e})")
+    check(res["master_ratio"] <= 1, f"dp: the masters differ more than the gradients explain ({res['master_err']:.3e}, "
+                                    f"{res['master_ratio']:.3f} of the gap allowed)")
+    if "nccl" in res:
+        n = res["nccl"]
+        log(f"  world size 1 ({n['backend']}): all-reduce of {n['tensors']} tensors, {n['bytes']} bytes in "
+            + ", ".join(f"{t:.4f}" for t in n["s"]) + f" s; the mean of one rank bit-equal: {n['equal']}; on {card}")
+        check(n["backend"] == "nccl" and n["equal"], f"NCCL at world size 1: {n}")
+    return res
+
+
+# ---------------------------------------------------------------- phase 12
 # the learning proof at tests/test_learning.py's sizes: the tiny model in fp32,
 # 2 scenes of the mixed family with textures, 120 VAE steps, 260 diffusion
 # steps, 8-step DDIM on views 3 and 11
@@ -2688,10 +3207,16 @@ def main() -> int:
     with Phase("weights"):
         run_weights(card, model=model)
 
+    with Phase("scenes"):
+        scenes_counts = run_scenes(args.eval_steps, card, model=model, profile=args.profile)["counts"]
+
     del model
     torch.cuda.empty_cache()
     with Phase("train"):
         run_train(card, args.train_steps, profile=args.profile)
+
+    with Phase("dp"):
+        run_dp(card)
 
     if args.learn:
         with Phase("learn"):
@@ -2703,12 +3228,12 @@ def main() -> int:
 
     # launches of the phase that drives each kernel's path: the flagship
     # slice for K1-K4, the evaluation scene for the two-phase K4, the forms
-    # request for K5 and K6, the VAE phase for K7 and K8; the GEMM's by shape
-    # in the phase its row names
+    # request for K5 and K6, the VAE phase for K7 and K8; K1's, the
+    # LayerNorm's and the GEMM's by shape in the phase its row names
     phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
                 "transformer_block_big": forms_counts, "big_attention": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
                 "conv3x3": vae_counts}
-    by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts}
+    by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts, "scenes": scenes_counts}
     for name, r in rows.items():
         if "launch_key" in r:
             r["launches"] = by_phase[r.pop("phase")].get(r.pop("launch_key"), 0)

@@ -319,19 +319,36 @@ class ViewFusion(nn.Module):
         clip, zero concat, zero frustum) rides the same 2B UNet batch.
         `prev_depth` (B, H, W, 1), if given, replaces GridAttn's depth
         estimate (feed_prev_depth)."""
-        B = noisy_latents.shape[0]
+        return self.apply_model_cfg_scenes(
+            noisy_latents[None], [batch_cameras], [input_latents], [input_cameras], clip_v_embed[None], t, cfg_scale,
+            jitter_noise[None], None if prev_depth is None else prev_depth[None])[0]
+
+    def apply_model_cfg_scenes(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
+                               cfg_scale, jitter_noise, prev_depth=None):
+        """apply_model_cfg over N scenes at one timestep t (B,): noisy
+        latents, clip_v_embed, jitter_noise and prev_depth with a leading
+        scene axis N, the cameras and input latents as lists of N. GridAttn
+        runs once a scene (it attends across one scene's views); the UNet
+        runs once over the 2NB batch [conditional of every scene | null of
+        every scene]."""
+        N, B = noisy_latents.shape[:2]
+        one = lambda ts: ts[0] if N == 1 else torch.cat(ts)
         t_embed = self.embed_time(t)
-        frustum = self._frustum(noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed,
-                                jitter_noise, prev_depth)
-        clip_embed = self.cc_proj(clip_v_embed)
-        x_cond, levels = self._unet_inputs(noisy_latents, input_latents, frustum)
-        x_null = torch.cat([noisy_latents, torch.zeros_like(x_cond[..., 5:])], dim=-1)
+        frustum = one([
+            self._frustum(noisy_latents[n], batch_cameras[n], input_latents[n], input_cameras[n], t, t_embed,
+                          jitter_noise[n], None if prev_depth is None else prev_depth[n])
+            for n in range(N)
+        ])
+        noisy = noisy_latents.reshape(N * B, *noisy_latents.shape[2:])
+        clip_embed = self.cc_proj(clip_v_embed.reshape(N * B, *clip_v_embed.shape[2:]))
+        x_cond, levels = self._unet_inputs(noisy, one([x.expand(B, *x.shape[1:]) for x in input_latents]), frustum)
+        x_null = torch.cat([noisy, torch.zeros_like(x_cond[..., 5:])], dim=-1)
         x2 = torch.cat([x_cond, x_null], dim=0)
         ctx2 = torch.cat([clip_embed, torch.zeros_like(clip_embed)], dim=0)
         levels2 = [torch.cat([v, torch.zeros_like(v)], dim=0) for v in levels]
-        pred = self._unet(x2, torch.cat([t, t]), ctx2, levels2)
-        s, s_uc = pred[:B], pred[B:]
-        return s_uc + cfg_scale * (s - s_uc)
+        pred = self._unet(x2, t.repeat(2 * N), ctx2, levels2)
+        s, s_uc = pred[: N * B], pred[N * B :]
+        return (s_uc + cfg_scale * (s - s_uc)).reshape(N, B, *pred.shape[1:])
 
     # -------------------------------------------------------------- training
     def loss_draws(self, B: int, device, generator=None) -> dict:

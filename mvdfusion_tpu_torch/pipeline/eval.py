@@ -1,9 +1,11 @@
 """Scene evaluation: prepare -> eta-DDIM -> chunked decode (counterpart of
 mvdfusion_tpu/pipeline/eval.py::eval_scenes).
 
-The JAX package vmaps the scene pipeline and shards the scene axis over its
-mesh; on one card the scenes here run one after another. Sharding scenes
-over several cards waits for the port's data parallelism.
+The JAX package vmaps the scene pipeline over a scene axis. Here the N
+scenes of a call share one sampler pass (pipeline/sampler.py::
+ddim_sample_scenes: one UNet call a step over their CFG batch of 2NB);
+prepare_batch and the decode run once a scene. Scenes shard over ranks in
+cli/demo.py.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion
-from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
+from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample_scenes
 
 
 class EvalOutput(NamedTuple):
@@ -48,38 +50,38 @@ def eval_scenes(
     jitter_noise: Optional[torch.Tensor] = None,  # (N, S_steps, B, h, w, D)
     timings: Optional[list] = None,
 ) -> EvalOutput:
-    """Generate the target views of N scenes and decode them beside the
-    ground truth. The noise comes from each scene's generator, or from the
-    given arrays (so a test can feed the JAX chain the same noise). If
-    `timings` is a list, each scene appends its {prepare, sample, decode}
-    seconds, synchronised on a CUDA device."""
+    """Generate the target views of N scenes in one sampler pass and decode
+    them beside the ground truth. The noise comes from each scene's
+    generator, drawn as a one-scene call draws it, or from the given arrays
+    (so a test can feed the JAX chain the same noise). If `timings` is a
+    list, the call appends its {prepare, sample, decode} seconds,
+    synchronised on a CUDA device."""
     sync = torch.cuda.synchronize if images.is_cuda else (lambda: None)
-    pick = lambda a, n: None if a is None else a[n]
-    outs = []
-    for n in range(images.shape[0]):
-        sync()
-        t0 = time.perf_counter()
-        batch_latents, cams, in_lat, in_cams, clip_v = model.prepare_batch(
-            images[n], R[n], T[n], f[n], c[n], input_idx, target_idx
-        )
-        sync()
-        t1 = time.perf_counter()
-        res = ddim_sample(
-            model, cams, in_lat, in_cams, clip_v, cfg_scale, num_steps=num_steps, eta=eta,
-            feed_prev_depth=model.cfg.feed_prev_depth,
-            init_noise=pick(init_noise, n), step_noise=pick(step_noise, n), jitter_noise=pick(jitter_noise, n),
-            generator=pick(generators, n),
-        )
-        sync()
-        t2 = time.perf_counter()
-        outs.append(EvalOutput(
-            pred_rgb=model.decode_latents_chunked(res.latents[..., :4]),
-            gt_rgb=model.decode_latents_chunked(batch_latents[..., :4]),
-            pred_depth=_unnorm(res.latents[..., 4:]),
-            gt_depth=_unnorm(batch_latents[..., 4:]),
-            input_depth=_unnorm(in_lat[..., 4:]),
-        ))
-        sync()
-        if timings is not None:
-            timings.append(dict(prepare=t1 - t0, sample=t2 - t1, decode=time.perf_counter() - t2))
-    return EvalOutput(*(torch.stack(parts) for parts in zip(*outs)))
+    N = images.shape[0]
+    sync()
+    t0 = time.perf_counter()
+    prepared = [model.prepare_batch(images[n], R[n], T[n], f[n], c[n], input_idx, target_idx) for n in range(N)]
+    batch_latents, cams, in_lat, in_cams, clip_v = zip(*prepared)
+    sync()
+    t1 = time.perf_counter()
+    res = ddim_sample_scenes(
+        model, cams, in_lat, in_cams, torch.stack(clip_v), cfg_scale, num_steps=num_steps, eta=eta,
+        feed_prev_depth=model.cfg.feed_prev_depth, init_noise=init_noise, step_noise=step_noise,
+        jitter_noise=jitter_noise, generators=generators,
+    )
+    sync()
+    t2 = time.perf_counter()
+    batch_latents, in_lat = torch.stack(batch_latents), torch.stack(in_lat)
+    # a scene's views are decoded together, in chunks of 8, as in a one-scene call
+    decode = lambda z: torch.stack([model.decode_latents_chunked(z[n]) for n in range(N)])
+    out = EvalOutput(
+        pred_rgb=decode(res.latents[..., :4]),
+        gt_rgb=decode(batch_latents[..., :4]),
+        pred_depth=_unnorm(res.latents[..., 4:]),
+        gt_depth=_unnorm(batch_latents[..., 4:]),
+        input_depth=_unnorm(in_lat[..., 4:]),
+    )
+    sync()
+    if timings is not None:
+        timings.append(dict(prepare=t1 - t0, sample=t2 - t1, decode=time.perf_counter() - t2))
+    return out

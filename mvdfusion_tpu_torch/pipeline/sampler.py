@@ -9,12 +9,14 @@ step's GridAttn depth estimate; step 0, which has none yet, takes the unbiased e
 x_t[depth] / sqrt(abar_t) as the reference does. All randomness is drawn up front
 from an explicit torch.Generator, or passed in (`init_noise`, `step_noise`,
 `jitter_noise`) so a test can feed the JAX sampler and this one the same
-noise stream.
+noise stream. `ddim_sample_scenes` runs N scenes in one pass (one UNet call
+a step over their CFG batch), the counterpart of the JAX package's vmap
+over scenes; `ddim_sample` is its one-scene case.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -52,21 +54,59 @@ def ddim_sample(
     `x_clip` (None: the reference, which has no clamp) clamps the carry after
     every update, a rail against the blow-up a short-trained model can hit
     late in an eta=1 trajectory."""
+    lead = lambda a: None if a is None else a[None]
+    res = ddim_sample_scenes(
+        model, [batch_cameras], [input_latents], [input_cameras], clip_v_embed[None], cfg_scale, num_steps=num_steps,
+        eta=eta, feed_prev_depth=feed_prev_depth, return_trajectory=return_trajectory, init_noise=lead(init_noise),
+        step_noise=lead(step_noise), jitter_noise=lead(jitter_noise), generators=[generator], x_clip=x_clip,
+        method=method,
+    )
+    traj = res.pred_x0_trajectory
+    return SampleResult(latents=res.latents[0], pred_x0_trajectory=None if traj is None else traj[0])
+
+
+@torch.no_grad()
+def ddim_sample_scenes(
+    model: ViewFusion,
+    batch_cameras: Sequence[Cameras],  # N scenes
+    input_latents: Sequence[torch.Tensor],  # N x (1, h, w, 5)
+    input_cameras: Sequence[Cameras],
+    clip_v_embed: torch.Tensor,  # (N, B, 1, ctx + 28)
+    cfg_scale: float,
+    num_steps: int = 50,
+    eta: float = 1.0,
+    feed_prev_depth: bool = False,
+    return_trajectory: bool = False,
+    init_noise: Optional[torch.Tensor] = None,  # (N, B, H, W, C)
+    step_noise: Optional[torch.Tensor] = None,  # (N, S, B, H, W, C)
+    jitter_noise: Optional[torch.Tensor] = None,  # (N, S, B, H, W, D)
+    generators: Optional[Sequence[Optional[torch.Generator]]] = None,  # one per scene
+    x_clip: Optional[float] = None,
+    method: str = "uniform",
+) -> SampleResult:
+    """ddim_sample over N scenes in one pass: each step is one
+    apply_model_cfg_scenes (GridAttn a scene, one UNet call over the 2NB
+    CFG batch) and one ddim_step on the (N, B, ...) carry. Scene n's noise
+    comes from generators[n], drawn in the order of a one-scene run (init,
+    step, jitter), so a scene's draws do not depend on its batch mates.
+    Returns latents (N, B, H, W, C) and the trajectory (N, S, B, H, W, C)."""
     cfg = model.cfg
     dev = clip_v_embed.device
-    B = clip_v_embed.shape[0]
+    N, B = clip_v_embed.shape[:2]
     H = W = cfg.latent_size
     C = cfg.unet_out_channels
     ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev, eta=eta,
                               method=method)
-    draw = lambda *shape: torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-    x = draw(B, H, W, C) if init_noise is None else init_noise.to(dev, torch.float32)
-    if step_noise is None:
-        step_noise = draw(num_steps, B, H, W, C)
-    if jitter_noise is None:
-        jitter_noise = draw(num_steps, B, H, W, cfg.n_pts_per_ray)
-    step_noise = step_noise.to(dev, torch.float32)
-    jitter_noise = jitter_noise.to(dev, torch.float32)
+    gens = list(generators) if generators is not None else [None] * N
+    xs, steps, jitters = [], [], []
+    for n in range(N):
+        draw = lambda *shape: torch.randn(shape, generator=gens[n], device=dev, dtype=torch.float32)
+        xs.append(draw(B, H, W, C) if init_noise is None else init_noise[n])
+        steps.append(draw(num_steps, B, H, W, C) if step_noise is None else step_noise[n])
+        jitters.append(draw(num_steps, B, H, W, cfg.n_pts_per_ray) if jitter_noise is None else jitter_noise[n])
+    x = torch.stack(xs).to(dev, torch.float32)
+    step_noise = torch.stack(steps, dim=1).to(dev, torch.float32)  # (S, N, B, ...)
+    jitter_noise = torch.stack(jitters, dim=1).to(dev, torch.float32)
 
     traj = []
     prev_depth = None
@@ -75,7 +115,7 @@ def ddim_sample(
         t = ddim.timesteps[index].expand(B)
         if feed_prev_depth and i == 0:
             prev_depth = x[..., 4:5] / torch.sqrt(ddim.alphas[index])
-        noise_pred = model.apply_model_cfg(
+        noise_pred = model.apply_model_cfg_scenes(
             x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i],
             prev_depth=prev_depth,
         )
@@ -86,4 +126,4 @@ def ddim_sample(
             prev_depth = pred_x0[..., 4:5]
         if return_trajectory:
             traj.append(pred_x0)
-    return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj) if return_trajectory else None)
+    return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj, dim=1) if return_trajectory else None)

@@ -21,6 +21,14 @@ each update (in place, so the kernels' prepared weights see the change);
 where a master's dtype is its compute dtype, the master is the model's
 parameter itself. The gradient of a compute copy is the gradient of its
 master through the cast, as in JAX. Only the trainable set needs gradients.
+
+Data parallelism. Under a process group (parallel/mesh.py) each rank runs
+its own scenes, and the accumulator (the mean gradient over grad_accum_step
+calls, a tensor for every trainable parameter on every rank) is averaged
+over the ranks once per optimizer step, just before the update: the mean is
+linear, so this equals averaging every call's gradient, at 1/grad_accum_step
+of the traffic (DDP's no_sync). The skip test, the clip, AdamW and the EMA
+then read the same gradient on every rank, which so hold the same masters.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import math
 from typing import Optional
 
 import torch
+
+from mvdfusion_tpu_torch import parallel
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 _MAX_CONSECUTIVE_NONFINITE = 100  # optax.apply_if_finite's max_consecutive_errors here
@@ -273,32 +283,42 @@ def _optimizer_update(model, state: TrainState, tc: TrainConfig, grads: dict) ->
     return True
 
 
-def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator=None):
-    """One call: scene_batch_loss's loss and gradient, accumulated as the
-    mean over grad_accum_step calls; on the last of them the AdamW update.
-    The step counter and the EMA advance every call. Runs the model under
-    tc.train_fuse_mode. Returns the loss (a 0-d tensor)."""
+@torch.no_grad()
+def _accumulate(opt: dict, grads: dict) -> None:
+    """The running mean over an optimizer step's calls: acc += (g - acc) / (i
+    + 1), a missing gradient counting as 0."""
+    div = opt["mini_step"] + 1
+    got = [(acc, grads[n]) for n, acc in opt["acc"].items() if grads.get(n) is not None]
+    none = [acc for n, acc in opt["acc"].items() if grads.get(n) is None]
+    if got:
+        step = torch._foreach_sub([g for _, g in got], [a for a, _ in got])
+        torch._foreach_div_(step, div)
+        torch._foreach_add_([a for a, _ in got], step)
+    if none:
+        torch._foreach_sub_(none, torch._foreach_div(none, div))
+
+
+def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator=None, draws=None):
+    """One call: scene_batch_loss's loss and gradient (`draws`, a list of
+    each scene's p_losses draws, or `generator`'s), accumulated as the mean
+    over grad_accum_step calls; on the last of them the mean over the ranks
+    (under a process group) and the AdamW update. The step counter and the
+    EMA advance every call. Runs the model under tc.train_fuse_mode.
+    Returns the loss (a 0-d tensor), averaged over the ranks."""
     cfg = model.cfg
     if tc.train_fuse_mode != "model" and cfg.fuse_mode != tc.train_fuse_mode:
         model.cfg = dataclasses.replace(cfg, fuse_mode=tc.train_fuse_mode)
     try:
         opt = state.opt_state
-        loss, grads = scene_batch_loss(model, batch, generator)
+        loss, grads = scene_batch_loss(model, batch, generator, draws)
+        _accumulate(opt, grads)
+        del grads  # not held through the update's temporaries
         k = max(tc.grad_accum_step, 1)
-        with torch.no_grad():
-            # the running mean: acc += (g - acc) / (i + 1), a missing gradient counting as 0
-            div = opt["mini_step"] + 1
-            got = [(acc, grads[n]) for n, acc in opt["acc"].items() if grads.get(n) is not None]
-            none = [acc for n, acc in opt["acc"].items() if grads.get(n) is None]
-            if got:
-                step = torch._foreach_sub([g for _, g in got], [a for a, _ in got])
-                torch._foreach_div_(step, div)
-                torch._foreach_add_([a for a, _ in got], step)
-            if none:
-                torch._foreach_sub_(none, torch._foreach_div(none, div))
         emit = opt["mini_step"] == k - 1
         opt["mini_step"] = (opt["mini_step"] + 1) % k
         if emit:
+            # the same tensors in the same order on every rank (a parameter no scene reached holds zeros)
+            parallel.all_reduce_mean_(list(opt["acc"].values()))
             _optimizer_update(model, state, tc, opt["acc"])
             torch._foreach_zero_(list(opt["acc"].values()))
         if state.ema is not None:
@@ -309,6 +329,8 @@ def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator
                 torch._foreach_add_(emas, [state.params[n].to(e.dtype) for n, e in state.ema.items()],
                                     alpha=1.0 - d)
         state.step += 1
+        loss = loss.detach()
+        parallel.all_reduce_mean_([loss])
         return loss
     finally:
         model.cfg = cfg

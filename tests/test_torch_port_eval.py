@@ -564,6 +564,69 @@ def test_eval_chain_matches(pair):
         rel_close(got[0], v)
 
 
+def _second_scene(p):
+    """Another scene for the pair's model (other images, the rig turned by
+    20 degrees, its own noise)."""
+    rng = np.random.default_rng(12)
+    R, Tr = look_at_view_transform(dist=1.5, elev=25.0, azim=np.linspace(0, 315, S) + 110)
+    H, B = p["cfg"].latent_size, S - 1
+    scene = dict(images=rng.uniform(size=(S, IMG, IMG, 3)).astype(np.float32), R=R, T=Tr,
+                 f=np.full((S, 2), 2.1875, np.float32), c=np.zeros((S, 2), np.float32))
+    noise = dict(init=rng.normal(size=(B, H, H, 5)).astype(np.float32),
+                 step_noise=rng.normal(size=(STEPS, B, H, H, 5)).astype(np.float32),
+                 jitter=rng.normal(size=(STEPS, B, H, H, 1)).astype(np.float32))
+    return scene, noise
+
+
+def _j_chain(p, sc, noise):
+    """The JAX eval chain of one scene on the given noise."""
+    jm, params = p["jm"], p["params"]
+    args = [jnp.asarray(sc[k]) for k in ("images", "R", "T", "f", "c")]
+    bl, cams, in_lat, in_cams, clip_v = jax.jit(lambda q, *a: jm.apply(q, *a, method=JViewFusion.prepare_batch))(
+        params, *args, jnp.asarray(p["input_idx"]), jnp.asarray(p["target_idx"]))
+    res = j_ddim_sample(params, jm, cams, in_lat, in_cams, clip_v, jax.random.PRNGKey(0), jnp.asarray(2.5),
+                        num_steps=STEPS, feed_prev_depth=True, init_noise=jnp.asarray(noise["init"]),
+                        step_noise=jnp.asarray(noise["step_noise"]), jitter_noise=jnp.asarray(noise["jitter"]))
+    decode = jax.jit(lambda q, z: jm.apply(q, z, method=JViewFusion.decode_latents_chunked))
+    unnorm = lambda d: np.clip((np.asarray(d) + 1) / 2, 0, 1)
+    return dict(pred_rgb=decode(params, res.latents[..., :4]), gt_rgb=decode(params, bl[..., :4]),
+                pred_depth=unnorm(res.latents[..., 4:]), gt_depth=unnorm(bl[..., 4:]),
+                input_depth=unnorm(in_lat[..., 4:]))
+
+
+def test_eval_chain_two_scenes_matches(pair):
+    """The eval chain on two scenes in one sampler pass (N = 2: one UNet call
+    a step over both scenes' CFG batch), against the JAX chain of each scene
+    on its own noise, every EvalOutput field 1e-3 relative; and against the
+    port's two one-scene calls, 1e-3 relative too: the UNet's CPU sums run
+    in another order at batch 4B than at 2B (measured: 5.0e-5 at most, on
+    pred_depth; the ground truth bit-equal), where a scene reading its batch
+    mate's conditioning would differ by O(1)."""
+    p = pair
+    sc2, noise2 = _second_scene(p)
+    scenes = [p["scene"], sc2]
+    noises = [dict(init=p["init"], step_noise=p["step_noise"], jitter=p["jitter"]), noise2]
+    stack = lambda key: torch.stack([T(n[key]) for n in noises])
+    args = [torch.stack([T(np.asarray(sc[k], np.float32)) for sc in scenes]) for k in ("images", "R", "T", "f", "c")]
+    n0 = len(p["calls"])
+    timings = []
+    out = eval_scenes(p["model"], *args, T(p["input_idx"]), T(p["target_idx"]), 2.5, num_steps=STEPS,
+                      init_noise=stack("init"), step_noise=stack("step_noise"), jitter_noise=stack("jitter"),
+                      timings=timings)
+    assert len(p["calls"]) - n0 == 2 * STEPS and len(timings) == 1  # GridAttn a scene a step; one entry a call
+    alone = [eval_scenes(p["model"], *(a[n : n + 1] for a in args), T(p["input_idx"]), T(p["target_idx"]), 2.5,
+                         num_steps=STEPS, init_noise=stack("init")[n : n + 1],
+                         step_noise=stack("step_noise")[n : n + 1], jitter_noise=stack("jitter")[n : n + 1])
+             for n in range(2)]
+    for n, (sc, noise) in enumerate(zip(scenes, noises)):
+        ref = _j_chain(p, sc, noise)
+        for k, v in ref.items():
+            got = getattr(out, k)
+            assert got.shape[0] == 2, k
+            rel_close(got[n], v)
+            rel_close(got[n], getattr(alone[n], k)[0])
+
+
 # ---------------------------------------------------------- (k), (l) drives
 def test_demo_cli_writes_artifacts_and_metrics(scene_dirs, tmp_path):
     """(k) The port's demo CLI on a fake GSO dir at the tiny config on the
@@ -591,11 +654,14 @@ def test_demo_cli_writes_artifacts_and_metrics(scene_dirs, tmp_path):
     keys = ("psnr", "ssim", "perceptual", "photo_mae", "depth_agree_rate", "covis_frac")
     assert set(metrics["summary"]) == set(keys) and len(metrics["scenes"]) == 1
     assert all(np.isfinite(metrics["summary"][k]) and np.isfinite(metrics["scenes"][0][k]) for k in keys)
-    # what is not ported raises rather than degrades
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        main(["-c", str(cfgp), "--multihost", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--scene-batch"):
-        main(["-c", str(cfgp), "--scene-batch", "2", "--device", "cpu"])
+    # what is not ported raises rather than degrades: tensor and view parallelism
+    from mvdfusion_tpu_torch.cli import train as train_cli
+    from mvdfusion_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="tensor and view parallelism"):
+        train_cli.main(["-c", str(cfgp), "--tp", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="tensor and view parallelism"):
+        make_mesh(sp=2, world=2)
     # an existing ckpt_path is restored, not skipped: a file that is not a
     # checkpoint of the port's trainer fails in torch.load
     ckpt = tmp_path / "absent.ckpt"

@@ -1,6 +1,7 @@
 """K1's launch plan (ops/groupnorm.py::plan_group_norm) on the CPU: for every
 GroupNorm shape the UNet and the VAE launch through K1, at CFG batches 1, 2,
-16 and 30 and at ragged row counts, the plan's CTAs cover each row of a
+16, 30, 32 and 60 (32 and 60: two scenes a sampler pass on the flagship and
+the evaluation paths) and at ragged row counts, the plan's CTAs cover each row of a
 sample exactly once, fit the card's shared memory and thread limits, and
 form a cluster the kernel takes (1..16 CTAs, a power of two). No card is
 needed: the plan is host arithmetic."""
@@ -30,7 +31,7 @@ def _smem(plan, C, vec):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("B", [1, 2, 16, 30])
+@pytest.mark.parametrize("B", [1, 2, 16, 30, 32, 60])
 def test_k1_plan_covers_rows_and_fits_the_card(B, dtype):
     for N, C in UNET_SHAPES + VAE_SHAPES + RAGGED_SHAPES:
         plan = K1.plan_group_norm(B, N, C, dtype)

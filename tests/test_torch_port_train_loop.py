@@ -174,7 +174,8 @@ def test_train_cli_on_fake_gso(tmp_path, fake_gso):
     epoch): a checkpoint a step and `latest`, the vis grid at step 2 and the
     loss plot; the same three steps as 2 + a resumed 1 give the same
     checkpoint bit for bit (the epoch boundary falls between them); the
-    regression preview writes its grid; parallel flags raise."""
+    regression preview writes its grid; tensor parallelism raises, and
+    --multihost outside a torchrun launch."""
     from mvdfusion_tpu_torch.cli.train import main
 
     base = ["--tiny", "--device", "cpu", "--seed", "3"]
@@ -199,9 +200,11 @@ def test_train_cli_on_fake_gso(tmp_path, fake_gso):
     c = tmp_path / "c"
     main(["-c", _cli_config(tmp_path, fake_gso, c, regression=True)] + base + ["--max-steps", "2"])
     assert (c / "vis" / "0000002.jpg").stat().st_size > 0
-    for flags in (["--dp", "2"], ["--tp", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: parallelism"):
+    for flags in (["--tp", "2"], ["--dp", "2", "--tp", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: tensor and view parallelism"):
             main(["-c", cfg_b, "--device", "cpu"] + flags)
+    with pytest.raises(RuntimeError, match="torchrun"):  # --multihost outside a torchrun launch
+        main(["-c", cfg_b, "--device", "cpu", "--multihost"])
 
 
 # ------------------------------------------------------- kernel-off switch

@@ -118,7 +118,7 @@ def _run_both(setup, monkeypatch, tc_kw, grads):
     model = _tiny()
     tc, jtc = trainer.TrainConfig(**tc_kw), jtrainer.TrainConfig(**tc_kw)
 
-    def loss_and_grads(m, batch, generator=None):
+    def loss_and_grads(m, batch, generator=None, draws=None):
         return torch.zeros(()), {n: batch["g"][n].clone() for n, p in m.named_parameters() if p.requires_grad}
 
     monkeypatch.setattr(trainer, "scene_batch_loss", loss_and_grads)
