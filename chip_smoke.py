@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k5-sweep
     python3 chip_smoke.py --site-timers
     python3 chip_smoke.py --gn-timers
+    python3 chip_smoke.py --tp-cards
 
 --profile-only runs the device and build phases, reads K4 and K4b by stage
 (device time per kernel, traced) and against their plain versions in bf16
@@ -28,7 +29,9 @@ entry points that two trees of the port share, so it compares them alike.
 --gn-timers builds, then times K7's stats and apply passes and K8's
 gn_fold_affine at the VAE's large maps by device_ms, each against its bound,
 with entry points that older trees share (copy it into an unpacked parent
-tree to compare two trees alike).
+tree to compare two trees alike). --tp-cards builds, then takes one train
+step at (dp=1, sp=2, tp=2) on four cards over NCCL, one rank a card,
+against rank 0 alone, held to the tp phase's rules (a four-card machine).
 
 Phases, each printed with elapsed seconds as it starts and ends:
   1. device   the card's name, count and power limit; exits non-zero
@@ -155,7 +158,24 @@ Phases, each printed with elapsed seconds as it starts and ends:
               all-reduce on the card); logs each
               all-reduce's bytes and seconds, the step's seconds and peak
               memory a rank
-  12. learn   with --learn only (about 110 s, most of it the host's
+  12. tp      tensor and view parallelism (run_tp): K4 and K4b at an sp
+              rank's query count against their plain versions; then 2
+              ranks sharing the card over gloo (parallel.spawn, tp_rank):
+              (a) the flagship model split at tp = 2 answers a request on
+              fixed noise (prepare, the sampler's first step, TP_STEPS
+              steps), then the first step with the switched site forms
+              (K5, K6 on gathered weights) and a decode with the fused
+              conv (K8); (b) configs/train.yaml's model takes one train
+              step at tp = 2 and (c) one at sp = 2 (dp_step on a mesh);
+              rank 0 then runs each alone; holds (a) to TP_STEP_RTOL and
+              TP_VAE_RTOL beside the noise scale of the kernels against the
+              kernel-off switch, (b) and (c) to TP_LOSS_RTOL, TP_GRAD_RTOL
+              and the masters' AdamW gap, gather_params to the whole
+              masters, the ranks bit-equal, and K1, K2, K3, K4, K7 (and
+              K5, K6, K8 under the switches) launched on the split path;
+              logs each part's seconds and launches and gloo's all_gather
+              on CUDA tensors (the port takes it; the phase fails without)
+  13. learn   with --learn only (about 110 s, most of it the host's
               launches of 260 train steps): tests/test_learning.py's
               proof through tools/overfit_synthetic.py (run_learn): the
               tiny model in fp32, 2 synthetic scenes, 120 VAE steps, 260
@@ -164,7 +184,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               and K4 in the trained evaluation, and one scene's trained
               evaluation against the kernel-off switch on the same noise
               (LEARN_PLAIN_RTOL)
-  13. stages  K4 and K4b traced by kernel name (crossview_stages): device
+  14. stages  K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -392,6 +412,52 @@ def compare_geglu(name, got, want, a, w, bias) -> float:
     return diff.max().item()
 
 
+def compare_qkv_attention(name, got, want, ln1, qkv_w, heads: int) -> float:
+    """bf16 K6 attention (qkv_attention_plain: q, k, v = r(ln1 W^T); l = q
+    k^T in fp32; p = r(softmax(scale l)); out = r(p v), r a bf16
+    rounding), the kernel rounding at the same points: both sides round the
+    same fp32 sums, which differ by far less than an ulp, so each rounding
+    may go the other way once. An element's allowance is what that does
+    through the chain: with dq, dk, dv the ulps of q, k, v, a logit moves
+    by dL = dq |k| + |q| dk + dq dk (summed over the head's dims), a
+    probability by p scale (dL + sum_m p_m dL_m) + ulp(p), the output by
+    sum_k dp_k (|v_k| + dv_k) + p_k dv_k + ulp(out). Held to the larger of
+    that and 1 bf16 ulp of max|plain|, and a mean of 1e-4 x max|plain|.
+    Logs the element nearest its allowance."""
+    import torch
+
+    B, N, C = ln1.shape
+    dh = C // heads
+    r = lambda t: t.to(torch.bfloat16).float()
+    qkv = r(ln1.float() @ qkv_w.float().t()).reshape(B, N, 3, heads, dh).permute(2, 0, 3, 1, 4)  # (3, B, h, N, dh)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    dq, dk, dv = bf16_ulp(q), bf16_ulp(k), bf16_ulp(v)
+    scale = dh**-0.5
+    p_un = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    dL = dq @ k.abs().transpose(-1, -2) + q.abs() @ dk.transpose(-1, -2) + dq @ dk.transpose(-1, -2)
+    p = r(p_un)
+    dp = p_un * scale * (dL + (p_un * dL).sum(-1, keepdim=True)) + bf16_ulp(p)
+    out = r(p @ v)
+    allow = dp @ (v.abs() + dv) + p @ dv + bf16_ulp(out)  # (B, h, N, dh)
+    allow = allow.permute(0, 2, 1, 3).reshape(B, N, C)
+    top = want.float().abs().max().item()
+    ulp_top = 2.0 ** (math.floor(math.log2(top)) - 7)
+    allow = allow.clamp_min(ulp_top)
+    diff = (got.float() - want.float()).abs()
+    ratio = diff / allow
+    mean = diff.mean().item()
+    ok = math.isfinite(diff.max().item()) and ratio.max().item() <= 1.0 and mean <= 1e-4 * top
+    i = int(ratio.argmax())
+    at = lambda t: t.flatten()[i].item()
+    log(f"  {name} [bf16]: max|diff| / allowance {ratio.max().item():.3f} (|diff| {at(diff):.3e}, allowance "
+        f"{at(allow):.3e}, plain {at(want):.4e}); max|diff| {diff.max().item():.3e} = "
+        f"{diff.max().item() / ulp_top:.2f} ulp of max|plain| {top:.3e}, {(diff > ulp_top).sum().item()} elements over "
+        f"1 ulp; mean {mean:.3e} against 1e-4 x max|plain| = {1e-4 * top:.3e} (each rounding of q, k, v, p and the "
+        f"output may go the other way once) -> {'ok' if ok else 'MISS'}")
+    check(ok, f"{name}: kernel disagrees with its plain version ({ratio.max().item():.3f} of the allowance)")
+    return diff.max().item()
+
+
 def compare_tokens(name, got, want, bound) -> float:
     """Phase-1 tokens, bf16: |kernel - plain| <= 1 bf16 ulp of the larger
     token (each side rounds its fp32 sum once) + `bound`, the fp32 sums'
@@ -411,6 +477,29 @@ def compare_tokens(name, got, want, bound) -> float:
         f"{(diff > ulp).float().mean().item() * 100:.4f}% of tokens over 1 ulp -> {'ok' if ok else 'MISS'}")
     check(ok, f"{name}: kernel disagrees with its plain version ({worst:.3f} of the allowance)")
     return (diff / ulp).max().item()
+
+
+K6_SEEDS = (1, 2, 3, 4)  # the (30, 64, 1280) attention row's extra inputs, each from its own generator
+
+
+def big_attention_seeds() -> None:
+    """K6's attention at the eval step's (30, 64, 1280), 8 heads, bf16, on
+    K6_SEEDS: inputs from a generator of their own (the kernels phase's
+    generator, and so every later row's inputs, stay as they are), each
+    held to compare_qkv_attention."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import block as K3
+
+    bf = torch.bfloat16
+    B, N, C, heads = 30, 64, 1280, 8
+    for seed in K6_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ln1 = torch.randn(B, N, C, generator=g, device="cuda").to(bf)
+        qkv_w = (torch.randn(3 * C, C, generator=g, device="cuda") * C**-0.5).to(bf)
+        compare_qkv_attention(f"big attention B={B} N={N} C={C} heads={heads} seed {seed}",
+                              K3.launch_big_attention(ln1, qkv_w, heads), K3.qkv_attention_plain(ln1, qkv_w, heads),
+                              ln1, qkv_w, heads)
 
 
 def site_inputs(rnd, B, N, C, dt, a2_map):
@@ -583,12 +672,11 @@ def kernel_checks():
         C, heads = 1280, 8
         ln1, qkv_w = rnd(B, N, C, dt=bf), rnd(3 * C, C, std=C**-0.5, dt=bf)
         got = K3.launch_big_attention(ln1, qkv_w, heads)
-        attn_err = compare_ulp(f"big attention B={B} N={N} C={C} heads={heads} "
-                               f"({K3.big_attention_route(bf, N, C, heads)})", got,
-                               K3.qkv_attention_plain(ln1, qkv_w, heads),
-                               "q, k, v, the probabilities and the output rounded where the reference rounds",
-                               mean_tol=1e-4)
+        attn_err = compare_qkv_attention(f"big attention B={B} N={N} C={C} heads={heads} "
+                                         f"({K3.big_attention_route(bf, N, C, heads)})", got,
+                                         K3.qkv_attention_plain(ln1, qkv_w, heads), ln1, qkv_w, heads)
         check(torch.equal(got, K3.launch_big_attention(ln1, qkv_w, heads)), "big attention: two launches differ")
+    big_attention_seeds()
     attn_ms = device_ms(lambda: K3.launch_big_attention(ln1, qkv_w, heads), ITERS)
     attn_plain_ms = time_ms(lambda: K3.qkv_attention_plain(ln1, qkv_w, heads), ITERS)
     abms, aby = bound(2 * B * N * C * 3 * C + 4 * B * N * N * C, nbytes(ln1, qkv_w, ln1))
@@ -2555,17 +2643,19 @@ def _checksum(t) -> int:
     return int((words * weights).sum())
 
 
-def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
+def dp_step(dev, tiny: bool, mine, reduce: bool, mesh=None) -> dict:
     """One train_step of the dp phase: configs/train.yaml's model (bf16
     towers; `tiny`: the tiny config), its trainer section at grad_accum_step
     1, random weights from SEED; the scenes at positions `mine` of DP_RANKS
     scenes of random images on the GSO rig, each with a view split and
     p_losses draws keyed on its position (as cli/train.py keys them). With
     `reduce` the trainer averages over the process group, its all-reduces
-    timed; without, the step is one rank's alone. Returns the loss, the
-    gradient the optimizer read and the trainable masters after the step
-    (host copies), with their fingerprints, the all-reduces and the step's
-    seconds."""
+    timed; without, the step is one rank's alone. `mesh`: the model split
+    on it (parallel.shard_params_; the tp phase), the gradient and masters
+    gathered whole, and whether gather_params's whole compute copies are
+    the whole masters cast. Returns the loss, the gradient the optimizer
+    read and the trainable masters after the step (host copies), with their
+    fingerprints, the all-reduces, the step's seconds and its launches."""
     import dataclasses
 
     import numpy as np
@@ -2575,6 +2665,8 @@ def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
     from mvdfusion_tpu_torch.core.config import build_model_config, build_train_config, load_yaml
     from mvdfusion_tpu_torch.data.rigs import AZIMUTHS_16, ELEVATIONS_16, fixed_rig
     from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, randomize_
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.parallel.mesh import gather_tensor
     from mvdfusion_tpu_torch.pipeline import trainer
 
     raw = load_yaml(str(TRAIN_CONFIG))
@@ -2593,6 +2685,8 @@ def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
                  c=on([c] * n), input_idx=on([perms[p][:1] for p in mine]),
                  target_idx=on([perms[p][1 : 1 + n_targets] for p in mine]))
     model = randomize_(ViewFusion(mcfg, device=dev), seed=SEED)
+    if mesh is not None:
+        parallel.shard_params_(model, mesh)
     state = trainer.init_train_state(model, tc)
     draws = [model.loss_draws(n_targets, dev, torch.Generator(device=dev).manual_seed(SEED + 100 + p)) for p in mine]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -2601,6 +2695,9 @@ def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
 
     def timed_reduce(tensors, *a, **kw):
         tensors = list(tensors)
+        axis = a[0] if a else kw.get("axis")
+        if axis is not None and axis.size == 1:  # an axis of one rank: nothing moves
+            return reduce0(tensors, *a, **kw)
         sync()
         t0 = time.perf_counter()
         reduce0(tensors, *a, **kw)
@@ -2608,12 +2705,14 @@ def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
         reduced.append(dict(bytes=sum(t.nbytes for t in tensors), tensors=len(tensors), s=time.perf_counter() - t0))
 
     def spy(model, state, tc, grads):
-        seen.append(({n: g.detach().to("cpu", copy=True) for n, g in grads.items()},  # the card holds two ranks
-                     [_checksum(g) for g in grads.values()]))
+        whole = {n: gather_tensor(g, state.splits.get(n)) for n, g in grads.items()}
+        seen.append(({n: g.to("cpu", copy=True) for n, g in whole.items()},  # the card holds two ranks
+                     [_checksum(g) for g in whole.values()]))
         return update0(model, state, tc, grads)
 
     parallel.all_reduce_mean_ = timed_reduce if reduce else (lambda tensors, *a, **kw: None)
     trainer._optimizer_update = spy
+    _lib.reset_launches()
     try:
         sync()
         t0 = time.perf_counter()
@@ -2622,11 +2721,16 @@ def dp_step(dev, tiny: bool, mine, reduce: bool) -> dict:
         step_s = time.perf_counter() - t0
     finally:
         parallel.all_reduce_mean_, trainer._optimizer_update = reduce0, update0
+    counts = dict(_lib.LAUNCHES)
     grads, prints = seen[0]
-    masters = {k: state.params[k].detach() for k in grads}
+    masters = {k: gather_tensor(state.params[k], state.splits.get(k)) for k in grads}
     prints += [_checksum(m) for m in masters.values()]
-    return dict(loss=float(loss), grads=grads, masters={k: m.to("cpu", copy=True) for k, m in masters.items()},
-                prints=prints, reduces=reduced, step_s=step_s, lr=trainer.learning_rate(tc, 0))
+    out = dict(loss=float(loss), grads=grads, masters={k: m.to("cpu", copy=True) for k, m in masters.items()},
+               prints=prints, reduces=reduced, step_s=step_s, lr=trainer.learning_rate(tc, 0), counts=counts)
+    if mesh is not None:  # the whole compute copies against the whole masters, cast
+        copies = parallel.gather_params(model, mesh)
+        out["copies_are_masters"] = all(torch.equal(copies[k], m.to(copies[k].dtype)) for k, m in masters.items())
+    return out
 
 
 def dp_rank(device: str, tiny: bool, out: str) -> None:
@@ -2775,6 +2879,365 @@ def run_dp(card: str, device: str = "cuda", tiny: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------- phase 12
+TP_RANKS = 2  # ranks sharing the card over gloo
+TP_STEPS = 2  # DDIM steps of the tp = 2 request
+# Rules, derived before the first run on the card. The split model computes
+# the function of the whole one; what moves is where bf16 rounds: a row
+# layer sums fp32 partials over the ranks then rounds once (the whole layer
+# rounds cuBLAS's sum once), a split conv runs cuDNN at half the output
+# features, K2 runs at half the heads. Each such rounding may go the other
+# way once, as the kernels against their plain versions do, so the
+# sampler's first step (apply_model_cfg, then ddim_step) is held as the
+# forms and scenes phases hold one: the latents within TP_STEP_RTOL x
+# max(1, max|tp = 1|), logged beside the tp = 1 step against itself under
+# the kernel-off switch (the noise scale); the VAE decode of the switched
+# route as the vae phase holds its routes, 3e-2 x max(1, max|tp = 1|). The train steps (configs/train.yaml's
+# model, bf16, one scene, the same draws): the loss within TP_LOSS_RTOL (a
+# mean of squared noise predictions that differ by bf16 roundings), the
+# gradient the optimizer reads within TP_GRAD_RTOL x max|g| (bf16 backward
+# through ~60 layers), and each master within the gap its two gradients
+# explain through AdamW's first step (the dp phase's rule, DP_*). The sp
+# step differs from one rank's by the UNet's batch (3 and 2 views against
+# 5: cuBLAS and cuDNN pick kernels per batch, as the scenes phase found) and
+# the VAE encode's (1 + 3 and 1 + 2 images against 1 + 5): the same rules.
+TP_STEP_RTOL = 3e-2
+TP_VAE_RTOL = 3e-2
+TP_LOSS_RTOL = 1e-2
+TP_GRAD_RTOL = 5e-2
+# The masters' rule is the dp phase's, lr |g/(|g|+eps) - g'/(|g'|+eps)| +
+# the update's roundings + the subtractions' roundings, both counted on
+# both sides: each side's u = (mu/c1)/(sqrt(nu/c2)+eps) + wd master, times
+# lr, rounds about 8.5 times in fp32 (mu, nu's two, the divisions, the
+# sqrt, + eps, + wd master, x lr), so two sides differ by up to 17 x 2^-24
+# lr where their gradients agree (DP_UPDATE_ULPS' 8 counts one side: the dp
+# phase's two ranks read bit-equal gradients); each side's master rounds to
+# half an ulp of its own value, which differ where the two straddle a power
+# of two (the dp rule's 1 ulp of the one-rank master assumes one binade).
+TP_UPDATE_ULPS = 18
+TP_KERNELS = {"groupnorm": "K1", "attention": "K2", "transformer_block": "K3", "crossview": "K4",
+              "groupnorm_tiled": "K7"}
+TP_SWITCHED = {"transformer_block_single": "K5", "transformer_block_big": "K6", "conv3x3": "K8"}
+
+
+def tp_sample(dev, tiny: bool, mesh=None) -> dict:
+    """The tp phase's request on the flagship model (bf16, random weights
+    from SEED; `tiny`: the tiny config), split on `mesh` where given:
+    prepare_batch of 9 random 256^2 images from a seed, the sampler's first
+    step on fixed noise (the latents after it), TP_STEPS DDIM steps on the
+    same noise, then the first step with the switched site forms on (K5,
+    K6) and one decode of the fixed noise's first view with MVDF_CONV3X3=1
+    (K8); without a mesh also the
+    first step under the kernel-off switch. Returns host copies and each
+    part's launches and seconds."""
+    import torch
+
+    from mvdfusion_tpu_torch import parallel
+    from mvdfusion_tpu_torch.core.schedule import ddim_step, make_ddim_schedule
+    from mvdfusion_tpu_torch.nn.viewfusion import ViewFusionConfig
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
+
+    cfg = ViewFusionConfig().tiny() if tiny else ViewFusionConfig()
+    model = build_model(dev.type, cfg)
+    if mesh is not None:
+        parallel.shard_params_(model, mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    scene = flagship_scene(model, dev)
+    S, B, ls = 9, 8, cfg.latent_size
+    IMG = ls * 2 ** (len(cfg.vae_ch_mult) - 1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    draw = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    images = torch.rand(S, IMG, IMG, 3, generator=g, device=dev)
+    init, steps, jitter = draw(B, ls, ls, 5), draw(TP_STEPS, B, ls, ls, 5), draw(TP_STEPS, B, ls, ls, cfg.n_pts_per_ray)
+    ddim = make_ddim_schedule(cfg.timesteps, TP_STEPS, cfg.linear_start, cfg.linear_end, device=dev)
+    t = ddim.timesteps[TP_STEPS - 1].expand(B)
+    step = lambda: ddim_step(ddim, init, model.apply_model_cfg(init, cams, in_lat, in_cams, clip_v, t, 2.5, jitter[0]),
+                             TP_STEPS - 1, steps[0])[0]  # the sampler's first step
+    out, secs, counts = {}, {}, {}
+    with torch.no_grad():
+        _lib.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        _, *prepared = model.prepare_batch(images, scene["R"], scene["T"], scene["f"], scene["c"],
+                                           scene["input_idx"], scene["target_idx"])
+        sync()
+        secs["prepare"] = time.perf_counter() - t0
+        cams, in_lat, in_cams, clip_v = prepared
+        out["step"] = step()
+        sync()
+        t0 = time.perf_counter()
+        out["latents"] = ddim_sample(model, *prepared, 2.5, num_steps=TP_STEPS, init_noise=init, step_noise=steps,
+                                     jitter_noise=jitter).latents
+        sync()
+        secs["steps"] = time.perf_counter() - t0
+        counts["default"] = dict(_lib.LAUNCHES)
+        _lib.reset_launches()
+        set_forms(True)
+        set_vae_forms(False, True)
+        try:
+            out["forms_step"] = step()
+            sync()
+            t0 = time.perf_counter()
+            out["decoded"] = model.decode_latents(init[:1, ..., :4])  # the same latent on both sides
+            sync()
+            secs["decode"] = time.perf_counter() - t0
+        finally:
+            set_forms(False)
+            set_vae_forms(False, False)
+        counts["switched"] = dict(_lib.LAUNCHES)
+        out.update(input_latents=in_lat, clip_v=clip_v)
+        if mesh is None:  # the noise scale: the same step with every kernel off
+            with _lib.plain_versions():
+                out["step_plain"] = step()
+    return dict(out={k: v.float().cpu() for k, v in out.items()}, secs=secs, counts=counts,
+                prints=[_checksum(v.float()) for v in out.values()])
+
+
+def train_gap(run: dict, one: dict) -> dict:
+    """A split train step (dp_step on a mesh) against one rank's (the same
+    step alone): the loss, the gradient's max|diff| and max|g|, and the
+    masters' largest share of the gap their two gradients explain through
+    AdamW's first step (the dp phase's rule, DP_*)."""
+    import torch
+
+    lr, eps = one["lr"], 1e-8
+    g_err = g_top = m_ratio = 0.0
+    worst = {}
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    for k, g in run["grads"].items():
+        g, rg, gm, rm = (t.to(dev) for t in (g, one["grads"][k], run["masters"][k], one["masters"][k]))
+        g_err, g_top = max(g_err, (g - rg).abs().max().item()), max(g_top, rg.abs().max().item())
+        apart = gm != rm
+        if apart.any():
+            a, b, w = g[apart].double(), rg[apart].double(), rm[apart]
+            explained = lr * (a / (a.abs() + eps) - b / (b.abs() + eps)).abs()
+            up = lambda x: (torch.nextafter(x.abs(), torch.tensor(float("inf"), device=dev)) - x.abs()).double()
+            ulp = 0.5 * (up(gm[apart]) + up(w))  # each side's subtraction rounds to half an ulp of its own result
+            allow = explained + lr * TP_UPDATE_ULPS * 2.0**-24 + ulp
+            ratio = (gm[apart] - w).double().abs() / allow
+            i = int(ratio.argmax())
+            if ratio[i].item() > m_ratio:
+                m_ratio = ratio[i].item()
+                worst = dict(name=k, ratio=m_ratio, master=gm[apart][i].item(), master_one=w[i].item(),
+                             g=a[i].item(), g_one=b[i].item(), explained=explained[i].item(), ulp=ulp[i].item())
+    return dict(loss=run["loss"], step_s=run["step_s"], reduces=run["reduces"], grad_err=g_err, grad_top=g_top,
+                master_ratio=m_ratio, worst_master=worst, copies_are_masters=run["copies_are_masters"])
+
+
+def check_train_gap(part: str, r: dict, one: dict, card: str) -> None:
+    """Log and hold a train_gap to the TP_* rules."""
+    loss_gap = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"  {part} train step: {r['step_s']:.3f} s (rank 0 alone {one['step_s']:.3f} s), loss {r['loss']:.6f} against "
+        f"{one['loss']:.6f} (gap {loss_gap:.3e}, rule {TP_LOSS_RTOL:g}); gradient max|diff| {r['grad_err']:.3e} "
+        f"against {TP_GRAD_RTOL:g} x max|g| {r['grad_top']:.3e}; masters at most {r['master_ratio']:.3f} of the gap "
+        f"the gradients explain ({r['worst_master']}); gather_params = the whole masters cast: "
+        f"{r['copies_are_masters']}; "
+        + "; ".join(f"all-reduce of {x['bytes']} bytes in {x['s']:.3f} s" for x in r["reduces"] if x["bytes"] > 8)
+        + f"; on {card}")
+    check(loss_gap <= TP_LOSS_RTOL, f"{part}: the loss differs ({loss_gap:.3e})")
+    check(r["grad_top"] > 0 and r["grad_err"] <= TP_GRAD_RTOL * r["grad_top"], f"{part}: the gradient differs")
+    check(r["master_ratio"] <= 1, f"{part}: the masters differ more than the gradients explain")
+    check(r["copies_are_masters"], f"{part}: gather_params differs from the gathered masters")
+
+
+def tp_rank(device: str, tiny: bool, out: str) -> None:
+    """One of TP_RANKS ranks of the tp phase (parallel.spawn, gloo): (a) the
+    request at tp = 2 (tp_sample), (b) one train step at tp = 2 and (c) one
+    at sp = 2 (dp_step on scene 0). Rank 0 then frees the card, runs the
+    request and the step alone (the comparison) and writes `out` (JSON)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from mvdfusion_tpu_torch import parallel
+    from mvdfusion_tpu_torch.parallel import tensor
+
+    dev = parallel.init_distributed(device)
+    cuda = dev.type == "cuda"
+    tp_mesh = parallel.make_mesh(dp=1, tp=TP_RANKS, device=dev)
+    sp_mesh = parallel.make_mesh(dp=1, sp=TP_RANKS, device=dev)
+    info = dict(backend=dist.get_backend(), world=tp_mesh.world)
+    if cuda:  # gloo's all_gather on CUDA tensors, which tensor.all_gather takes (torch's table lists it for CPUs)
+        probe = torch.full((4,), float(tp_mesh.rank), device=dev)
+        try:
+            got = tensor.all_gather(probe, tp_mesh.axes["tp"])
+            info["gloo_cuda_all_gather"] = "ok" if [float(p[0]) for p in got] == [0.0, 1.0] else "wrong values"
+        except Exception as e:
+            info["gloo_cuda_all_gather"] = f"refused: {type(e).__name__}: {str(e)[:120]}"
+        check(info["gloo_cuda_all_gather"] == "ok", f"gloo's all_gather on CUDA: {info['gloo_cuda_all_gather']}")
+    free = lambda: (gc.collect(), torch.cuda.empty_cache() if cuda else None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    a = tp_sample(dev, tiny, tp_mesh)
+    free()
+    lap("a: request at tp = 2")
+    b = dp_step(dev, tiny, range(1), reduce=True, mesh=tp_mesh)
+    free()
+    lap("b: train step at tp = 2")
+    c = dp_step(dev, tiny, range(1), reduce=True, mesh=sp_mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    prints = parallel.gather_objects([a["prints"], b["prints"], c["prints"]])
+    parallel.barrier()
+    lap("c: train step at sp = 2")
+    if tp_mesh.rank != 0:
+        return
+    free()
+    a1 = tp_sample(dev, tiny)
+    free()
+    lap("rank 0 alone: the request")
+    one = dp_step(dev, tiny, range(1), reduce=False)
+    lap("rank 0 alone: the train step")
+    gap = lambda x, y: float((x - y).abs().max())
+    top = lambda y: float(y.abs().max())
+    info.update(
+        peak_gib=peak, secs=a["secs"], secs_one=a1["secs"], counts=a["counts"], train_counts=b["counts"],
+        sp_counts=c["counts"], ranks_agree=[all(p[i] == prints[0][i] for p in prints) for i in range(3)],
+        sample={k: dict(gap=gap(v, a1["out"][k]), mean=float((v - a1["out"][k]).abs().mean()), top=top(a1["out"][k]),
+                        finite=bool(torch.isfinite(v).all()))
+                for k, v in a["out"].items()},
+        one=dict(loss=one["loss"], step_s=one["step_s"]),
+        plain=dict(gap=gap(a1["out"]["step"], a1["out"]["step_plain"]), top=top(a1["out"]["step_plain"])))
+    for name, run in (("tp", b), ("sp", c)):
+        info[name] = train_gap(run, one)
+    lap("the comparisons")
+    info["parts"] = parts
+    with open(out, "w") as fp:
+        json.dump(info, fp)
+
+
+def tp_cards_rank(out: str) -> None:
+    """One of four ranks, one a card (init_distributed takes NCCL): one train
+    step at (dp=1, sp=2, tp=2) (dp_step on scene 0); rank 0 then runs the
+    step alone and writes `out` (JSON)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from mvdfusion_tpu_torch import parallel
+
+    dev = parallel.init_distributed("cuda")
+    mesh = parallel.make_mesh(dp=1, sp=2, tp=2, device=dev)
+    run = dp_step(dev, False, range(1), reduce=True, mesh=mesh)
+    prints = parallel.gather_objects(run["prints"])
+    parallel.barrier()
+    if mesh.rank != 0:
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = dp_step(dev, False, range(1), reduce=False)
+    info = dict(backend=dist.get_backend(), world=mesh.world, ranks_agree=all(p == prints[0] for p in prints),
+                gap=train_gap(run, one), one=dict(loss=one["loss"], step_s=one["step_s"]))
+    with open(out, "w") as fp:
+        json.dump(info, fp)
+
+
+def run_tp_cards(card: str) -> dict:
+    """--tp-cards: four ranks, one a card, over NCCL, one train step at (dp=1,
+    sp=2, tp=2) against rank 0 alone, held to the tp phase's rules."""
+    import tempfile
+
+    import torch
+
+    from mvdfusion_tpu_torch import parallel
+
+    n = torch.cuda.device_count()
+    check(n >= 4, f"--tp-cards needs four cards, this machine has {n}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.spawn(tp_cards_rank, 4, (os.path.join(tmp, "cards.json"),))
+        log(f"  4 ranks and the comparison: {time.perf_counter() - t0:.1f}s")
+        res = json.loads((Path(tmp) / "cards.json").read_text())
+    log(f"  4 ranks, one a card ({res['backend']}), ranks bit-equal: {res['ranks_agree']}")
+    check(res["backend"] == "nccl", f"four ranks on four cards took {res['backend']}, not NCCL")
+    check(res["ranks_agree"], "the ranks' gradients or masters differ")
+    check_train_gap("(dp=1, sp=2, tp=2) over NCCL", res["gap"], res["one"], card)
+    return res
+
+
+def query_count_checks() -> None:
+    """K4 and K4b at a query count that is not V x H x W x D: the first half
+    of the views' query points (an sp rank's share), held to the kernels
+    rows' rule (1 bf16 ulp of max|plain|, mean 3e-4 x max|plain|)."""
+    import torch
+
+    from mvdfusion_tpu_torch.ops import crossview as K4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rnd = lambda *shape, std=1.0, dt=torch.float32: (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+    for name, launch, plain, V in (("crossview", K4.launch_crossview, K4.crossview_plain, 8),
+                                   ("crossview_two_phase", K4.launch_crossview_two_phase,
+                                    K4.crossview_two_phase_plain, 15)):
+        args, N, _, _ = cv_inputs(K4, rnd, dev, V, 32, 256, 3, 8, 768, torch.bfloat16)
+        n = (V // 2) * 32 * 32
+        args = (args[0][:, :n].contiguous(), args[1][:n].contiguous(), *args[2:4], args[4][:n].contiguous(), *args[5:])
+        compare_ulp(f"{name} V={V} at N={n} queries (of {N})", launch(*args), plain(*args),
+                    "an sp rank's share of the query points", mean_tol=3e-4)
+
+
+def run_tp(card: str, device: str = "cuda", tiny: bool = False) -> dict:
+    """The tp phase: TP_RANKS ranks over gloo on the card (tp_rank), then the
+    checks against rank 0's own run alone (TP_* rules), the ranks against
+    each other (bit-equal) and the launches of each part; on the card first
+    K4 and K4b at an sp rank's query count. `device`/`tiny` let it be
+    rehearsed on the CPU (no launches there)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mvdfusion_tpu_torch import parallel
+
+    if device == "cuda":
+        query_count_checks()
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.spawn(tp_rank, TP_RANKS, (device, tiny, os.path.join(tmp, "tp.json")))
+        log(f"  {TP_RANKS} ranks and the comparison: {time.perf_counter() - t0:.1f}s with the processes' start and "
+            f"the models' builds")
+        res = json.loads((Path(tmp) / "tp.json").read_text())
+    log(f"  {TP_RANKS} ranks ({res['backend']}); gloo's own all_gather on CUDA tensors: "
+        f"{res.get('gloo_cuda_all_gather', 'not asked (CPU)')}; peak memory {res['peak_gib']:.2f} GiB a rank")
+    check(res["backend"] == "gloo", f"{TP_RANKS} ranks on one device took {res['backend']}, not gloo")
+    secs = lambda d: ", ".join(f"{k} {v:.3f}s" for k, v in d.items())
+    log(f"  the phase's parts: {secs(res['parts'])}")
+    log(f"  (a) tp = 2 request: {secs(res['secs'])}; rank 0 alone at tp = 1: {secs(res['secs_one'])}; on {card}")
+    for k, r in res["sample"].items():
+        log(f"  (a) {k}: max|tp2 - tp1| {r['gap']:.3e}, mean {r['mean']:.3e}, max|tp1| {r['top']:.3e}")
+        check(r["finite"], f"tp: non-finite {k}")
+    p = res["plain"]
+    log(f"  (a) the noise scale: rank 0's first step at tp = 1, the kernels against the kernel-off switch: max|diff| "
+        f"{p['gap']:.3e}, max|plain| {p['top']:.3e}")
+    for k, rtol in (("step", TP_STEP_RTOL), ("forms_step", TP_STEP_RTOL), ("decoded", TP_VAE_RTOL)):
+        r = res["sample"][k]
+        allow = rtol * max(1.0, r["top"])
+        log(f"  (a) {k}: {r['gap']:.3e} against {rtol:g} x max(1, max|tp1|) = {allow:.3e} -> "
+            f"{'ok' if r['gap'] <= allow else 'MISS'}")
+        check(r["gap"] <= allow, f"tp: {k} differs from tp = 1 ({r['gap']:.3e} > {allow:.3e})")
+    check(all(res["ranks_agree"]), f"tp: the ranks' outputs differ (request, tp step, sp step: {res['ranks_agree']})")
+    for part in ("tp", "sp"):
+        check_train_gap(f"({'b' if part == 'tp' else 'c'}) {part} = 2", res[part], res["one"], card)
+    for part, counts in (("(a) request", res["counts"]["default"]), ("(a) switched forms", res["counts"]["switched"]),
+                         ("(b) tp train step", res["train_counts"]), ("(c) sp train step", res["sp_counts"])):
+        log(f"  {part}, rank 0's launches: " + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
+    if device == "cuda":
+        for names, part in ((TP_KERNELS, "default"), (TP_SWITCHED, "switched")):
+            for k, row in names.items():
+                check(res["counts"][part].get(k, 0) > 0, f"tp: {row} ({k}) did not run on the split path")
+    return res
+
+
+# ---------------------------------------------------------------- phase 13
 # the learning proof at tests/test_learning.py's sizes: the tiny model in fp32,
 # 2 scenes of the mixed family with textures, 120 VAE steps, 260 diffusion
 # steps, 8-step DDIM on views 3 and 11
@@ -3105,6 +3568,9 @@ def main() -> int:
     ap.add_argument("--gn-timers", action="store_true",
                     help="only build the kernels and time K7's passes and K8's statistics pass at the VAE's "
                          "large maps (device_ms)")
+    ap.add_argument("--tp-cards", action="store_true",
+                    help="only build the kernels, then one train step at (dp=1, sp=2, tp=2) on four cards over NCCL, "
+                         "one rank a card, against one rank alone (needs a four-card machine)")
     ap.add_argument("--site-timers", action="store_true",
                     help="only build the kernels and read the K3, K5 and K6 sites and K6's attention with both "
                          "timers (device_ms, time_ms)")
@@ -3163,6 +3629,11 @@ def main() -> int:
             site_timers()
         return 0
 
+    if args.tp_cards:
+        with Phase("tp cards"):
+            run_tp_cards(card)
+        return 0
+
     if args.profile_only:
         with Phase("profile"):
             crossview_readings()
@@ -3217,6 +3688,9 @@ def main() -> int:
 
     with Phase("dp"):
         run_dp(card)
+
+    with Phase("tp"):
+        run_tp(card)
 
     if args.learn:
         with Phase("learn"):

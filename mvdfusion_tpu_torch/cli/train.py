@@ -2,20 +2,24 @@
 
     python -m mvdfusion_tpu_torch.cli.train -c configs/train.yaml [--tiny]
         [--max-steps N] [--scenes-per-chip N] [--seed N] [--device cuda|cpu]
-        [--dp N] [--profile DIR]
+        [--dp N] [--tp M] [--profile DIR]
     torchrun --nnodes H --nproc-per-node G ... -m mvdfusion_tpu_torch.cli.train \
         -c configs/train.yaml --multihost
 
 A step is one call of the train step on `scenes_per_chip` scenes a rank;
-with grad_accum_step k the optimizer updates every k steps. `--dp N` (by
-default every visible card, 1 on the CPU) runs N ranks on this host, one
-card each (parallel.spawn); `--multihost` takes the ranks from torchrun's
-environment on every host instead. A step's global batch is dp x
-scenes_per_chip scenes from one sampler; rank r trains on positions [r spc,
-(r+1) spc) of it, its prefetch thread loading only those, and the trainer
-averages the gradient over the ranks once per optimizer step
-(pipeline/trainer.py). Rank 0 alone writes checkpoints (torch.save: the
-masters, the optimizer state, step and epoch) to
+with grad_accum_step k the optimizer updates every k steps. `--tp M`
+splits the model's layers over M ranks (Megatron column/row splits,
+parallel/mesh.py::param_spec); `--dp N` (by default every visible card
+divided by M, 1 on the CPU) runs N x M ranks on this host, one card each
+(parallel.spawn); `--multihost` takes the ranks from torchrun's environment
+on every host instead, dp then the world size divided by M. The ranks form
+the (dp, tp) mesh, tp fastest, and must fill it. A step's global batch is
+dp x scenes_per_chip scenes from one sampler; the ranks at dp coordinate d
+train on positions [d spc, (d+1) spc) of it, their prefetch threads loading
+only those, and the trainer averages the gradient over dp once per
+optimizer step (pipeline/trainer.py). Rank 0 alone writes checkpoints
+(torch.save: the masters, the optimizer state, step and epoch; whole
+tensors, gathered over tp by the ranks of its tp group) to
 <exp_dir>/ckpt/step_{n:08d} with a `latest` pointer, the loss plot and the
 vis grid, and prints the logs; a run finding a checkpoint resumes from it on
 every rank and skips the batches its epoch already consumed. Each scene's
@@ -26,10 +30,11 @@ an unbroken one and a scene's draws do not depend on the number of ranks.
 saver.{print,save,vis,loss}_interval count steps; the vis grid is a full
 DDIM sample at CFG 1 on the batch's first scene, or with saver.regression
 the one-step preview (apply_model at t = T-1 on the clean latents, then
-predict_start_from_noise). --profile writes a torch.profiler trace of
-steps 10-13 to DIR. main returns the model and its TrainState (None in the
-process that spawned the ranks). --tp > 1 raises: tensor parallelism is
-not ported.
+predict_start_from_noise), sampled by the ranks of rank 0's tp group.
+--profile writes a torch.profiler trace of steps 10-13 to DIR. main returns
+the model and its TrainState (None in the process that spawned the ranks).
+There is no --sp, as in the JAX CLI: the view axis is reached through
+parallel.make_mesh and the trainer.
 """
 
 from __future__ import annotations
@@ -40,16 +45,14 @@ import time
 
 import numpy as np
 
-_TP = "(ROADMAP Queue 1: tensor and view parallelism)"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="mvdfusion_tpu_torch training")
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel ranks (default: every visible card on cuda, 1 on the cpu)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel width (not ported: 1)")
+                   help="data-parallel ranks (default: every visible card on cuda divided by --tp, 1 on the cpu)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks a data-parallel rank (default 1)")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--scenes-per-chip", type=int, default=None,
                    help="scenes per rank per step (overrides trainer.scenes_per_chip)")
@@ -67,8 +70,6 @@ def _seed(*key) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported {_TP}")
     import torch
 
     from mvdfusion_tpu_torch import parallel
@@ -78,15 +79,16 @@ def main(argv=None):
         return _run_rank(args)
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    dp = args.dp if args.dp is not None else (torch.cuda.device_count() if device_type == "cuda" else 1)
-    if dp > 1:
-        parallel.spawn(_run_rank, dp, (argparse.Namespace(**{**vars(args), "dp": dp}),))
+    dp = args.dp if args.dp is not None else (max(1, torch.cuda.device_count() // args.tp)
+                                              if device_type == "cuda" else 1)
+    if dp * args.tp > 1:
+        parallel.spawn(_run_rank, dp * args.tp, (argparse.Namespace(**{**vars(args), "dp": dp}),))
         return None
     return _train(args, torch.device(args.device))
 
 
 def _run_rank(args):
-    """One rank of a data-parallel run (torchrun's or parallel.spawn's)."""
+    """One rank of a parallel run (torchrun's or parallel.spawn's)."""
     import torch
     import torch.distributed as dist
 
@@ -114,9 +116,11 @@ def _train(args, dev):
     from mvdfusion_tpu_torch.utils.vis import save_loss_plot
 
     mesh = parallel.make_mesh(dp=args.dp, tp=args.tp, device=dev)
-    if mesh.dp != mesh.world:
-        raise ValueError(f"--dp {mesh.dp} over {mesh.world} ranks: every rank is a data-parallel rank")
+    if mesh.dp * mesh.tp != mesh.world:
+        raise ValueError(f"--dp {mesh.dp} x --tp {mesh.tp} over {mesh.world} ranks: the mesh must hold every rank")
     rank, main0 = mesh.rank, parallel.is_main()
+    d = mesh.coords[0]
+    tp0 = mesh.coords[0] == 0  # the ranks of rank 0's tp group (they gather its checkpoints and sample its grid)
     say = print if main0 else (lambda *a, **k: None)
     if dev.type == "cuda":
         from mvdfusion_tpu_torch.ops import _lib
@@ -136,17 +140,20 @@ def _train(args, dev):
     tc = build_train_config(cfg)
     dataset = build_dataset(cfg)
     n_views = dataset[0]["images"].shape[0]
-    say(f"[train] dp {mesh.dp} x {spc} scene(s)/step, grad_accum_step {tc.grad_accum_step}")
+    say(f"[train] mesh dp {mesh.dp} x sp {mesh.sp} x tp {mesh.tp}, {spc} scene(s)/step a dp rank, "
+        f"grad_accum_step {tc.grad_accum_step}")
     print(f"[train] rank {rank}/{mesh.world} on {dev}")
 
     def sync_start():
-        """Every rank starts from rank 0's masters (and EMA)."""
-        if mesh.world > 1:
-            parallel.broadcast_(list(state.params.values()) + list((state.ema or {}).values()))
+        """Every rank starts from the masters (and EMA) of the rank of its
+        tp coordinate in rank 0's tp group."""
+        grad = mesh.axes["grad"]
+        if grad.size > 1:
+            parallel.broadcast_(list(state.params.values()) + list((state.ema or {}).values()), grad.src, grad)
             load_params(model, state.params)
 
     t0 = time.time()
-    model = randomize_(ViewFusion(mcfg, device=dev), seed=args.seed)
+    model = parallel.shard_params_(randomize_(ViewFusion(mcfg, device=dev), seed=args.seed), mesh)
     state = init_train_state(model, tc)
     sync_start()
     say(f"[train] init {time.time() - t0:.1f}s")
@@ -162,7 +169,7 @@ def _train(args, dev):
         sync_start()
         print(f"[train] rank {rank}: resumed from {latest} ({time.time() - t0:.1f}s)")
     start_step = state.step
-    mine = slice(rank * spc, (rank + 1) * spc)  # this rank's positions in a step's global batch
+    mine = slice(d * spc, (d + 1) * spc)  # this rank's positions in a step's global batch (its dp coordinate's)
 
     def view_split(rng):
         if random_views:
@@ -195,7 +202,8 @@ def _train(args, dev):
     def visualize(batch, step):
         """The sample grid of the batch's first scene with the eval
         parameters (the EMA where tracked), rows [noise | pred | gt | pred
-        depth | gt depth]; slot 0 of the noise row shows the ground truth."""
+        depth | gt depth]; slot 0 of the noise row shows the ground truth.
+        Every rank of rank 0's tp group samples; rank 0 writes."""
         from mvdfusion_tpu_torch.core.schedule import predict_start_from_noise
         from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample
         from mvdfusion_tpu_torch.utils.vis import save_train_vis_grid
@@ -221,15 +229,19 @@ def _train(args, dev):
                 noise[0] = lat[0, ..., :4]
                 rgb = lambda z: model.decode_latents(z).cpu().numpy()
                 unnorm = lambda d: np.clip((d.float().cpu().numpy() + 1) / 2, 0, 1)
+                images = [rgb(noise), rgb(pred[..., :4]), rgb(lat[..., :4]), rgb(in_lat[..., :4])]
+                if not main0:
+                    return
                 save_train_vis_grid(
-                    os.path.join(vis_dir, f"{step:07d}.jpg"), rgb(noise), rgb(pred[..., :4]), rgb(lat[..., :4]),
-                    unnorm(pred[..., 4:]), unnorm(lat[..., 4:]), input_rgb=rgb(in_lat[..., :4]),
+                    os.path.join(vis_dir, f"{step:07d}.jpg"), *images[:3],
+                    unnorm(pred[..., 4:]), unnorm(lat[..., 4:]), input_rgb=images[3],
                     input_depth=unnorm(in_lat[..., 4:]), concat_input=bool(saver.get("concat_input", False)),
                 )
         finally:
             if live is not None:
                 load_params(model, live)
-        print(f"[train] wrote visual sample grid @ step {step}")
+        if main0:
+            print(f"[train] wrote visual sample grid @ step {step}")
 
     sampler = StatefulShardedSampler(len(dataset), batch_size=mesh.dp * spc, seed=args.seed, start_step=start_step)
     losses, loss_history = [], []
@@ -264,13 +276,16 @@ def _train(args, dev):
                 dt = (time.time() - t_last) / print_interval
                 t_last = time.time()
                 print(f"[train] epoch {epoch} step {step} loss {avg:.4f} ({dt:.2f}s/it)")
-            if vis_interval and step % vis_interval == 0 and main0:
+            if vis_interval and step % vis_interval == 0 and tp0:
                 visualize(batch, step)
-            if step % save_interval == 0 and main0:
+            if step % save_interval == 0 and tp0:
                 # the epoch of the next step: a save at an epoch's end resumes at the next one's start
                 t0 = time.time()
-                save_checkpoint(ckpt_dir, step, state_payload(state, epoch + (step % sampler.steps_per_epoch == 0)))
-                print(f"[train] saved checkpoint @ step {step} ({time.time() - t0:.1f}s)")
+                payload = state_payload(state, epoch + (step % sampler.steps_per_epoch == 0))
+                if main0:
+                    save_checkpoint(ckpt_dir, step, payload)
+                    print(f"[train] saved checkpoint @ step {step} ({time.time() - t0:.1f}s)")
+                del payload
             if args.max_steps and step - start_step >= args.max_steps:
                 say("[train] reached max steps")
                 return model, state

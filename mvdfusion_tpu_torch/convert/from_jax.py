@@ -14,6 +14,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from mvdfusion_tpu_torch.parallel.mesh import full_shape, shard_like
+
 Path = Tuple[str, ...]
 # torch key -> (list of flax paths, layout kind)
 Table = Dict[str, Tuple[List[Path], str]]
@@ -219,9 +221,11 @@ def viewfusion_table(cfg) -> Table:
 def load_flax_params(model, flat: Dict[str, np.ndarray]) -> None:
     """Copy JAX params, given flat as {"path/to/leaf": array} (a leading
     "params/" is optional), into the port's ViewFusion in place; every
-    parameter of the model must be covered and every shape must match."""
+    parameter of the model must be covered and every shape must match (the
+    whole shape: a model split over tp takes each rank's slice)."""
     flat = {k[len("params/"):] if k.startswith("params/") else k: v for k, v in flat.items()}
     table = viewfusion_table(model.cfg)
+    params = dict(model.named_parameters())
     state = model.state_dict()
     missing = sorted(set(state) - set(table))
     if missing:
@@ -230,7 +234,7 @@ def load_flax_params(model, flat: Dict[str, np.ndarray]) -> None:
     for key, (paths, kind) in table.items():
         arrays = [np.asarray(flat["/".join(p)], np.float32) for p in paths]
         w = _TO_TORCH[kind](arrays)
-        if tuple(w.shape) != tuple(state[key].shape):
-            raise ValueError(f"{key}: {w.shape} from JAX vs {tuple(state[key].shape)} in the port")
-        new[key] = torch.as_tensor(np.ascontiguousarray(w), dtype=state[key].dtype)
+        if tuple(w.shape) != full_shape(params[key]):
+            raise ValueError(f"{key}: {w.shape} from JAX vs {full_shape(params[key])} in the port")
+        new[key] = shard_like(torch.as_tensor(np.ascontiguousarray(w), dtype=state[key].dtype), params[key])
     model.load_state_dict(new, strict=True)

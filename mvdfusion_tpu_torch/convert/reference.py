@@ -20,6 +20,8 @@ Each loader checks every shape before it writes anything, then copies each
 tensor with `param.copy_` under no_grad onto the parameter's own device and
 dtype. copy_ moves the parameter's version, so the weights the kernels
 prepare once a parameter (ops/_lib.py::cached) are rebuilt at their next use.
+The files hold whole tensors; into a model split over tp
+(parallel/mesh.py::shard_params_) each rank copies its own slice.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, List, Mapping, NamedTuple
 import torch
 
 from mvdfusion_tpu_torch.convert.surgery import ZERO123_PARAM_MAPPER, ZERO123_REMOVE_KEYS, apply_surgery, report_load
+from mvdfusion_tpu_torch.parallel.mesh import full_shape, shard_like
 
 
 def load_torch_state(path: str) -> Dict[str, object]:
@@ -73,8 +76,8 @@ def load_state(model, state: Mapping[str, object], prefix: str = "", scope: str 
     pairs = {prefix + k: v for k, v in state.items() if (prefix + k) in params}
     for key, v in pairs.items():
         shape = tuple(v.shape) if hasattr(v, "shape") else None
-        if shape != tuple(params[key].shape):
-            raise ValueError(f"[convert] shape mismatch at {key}: file {shape} vs model {tuple(params[key].shape)}")
+        if shape != full_shape(params[key]):
+            raise ValueError(f"[convert] shape mismatch at {key}: file {shape} vs model {full_shape(params[key])}")
     missing, _ = report_load(params, [prefix + k for k in state], verbose=verbose)
     unused = [k for k in state if (prefix + k) not in pairs]
     if strict and missing:
@@ -82,7 +85,7 @@ def load_state(model, state: Mapping[str, object], prefix: str = "", scope: str 
     with torch.no_grad():
         for key, v in pairs.items():
             p = params[key]
-            p.copy_(v.to(p.dtype))
+            p.copy_(shard_like(v, p).to(p.dtype))
     if verbose:
         print(f"[convert] wrote {len(pairs)}/{len(params)} tensors")
     return ConvertStats(written=list(pairs), missing=missing, unused=unused)

@@ -6,6 +6,11 @@ tower is pre-LN with QuickGELU MLPs, ln_post on the CLS token and a linear
 projection. Names follow clip's VisionTransformer (conv1, class_embedding,
 positional_embedding, ln_pre, transformer.resblocks.{i}.attn.in_proj_weight,
 ln_post, proj). Attention at 257 tokens goes through the K2 kernel wrapper.
+
+Under tensor parallelism (parallel/mesh.py) the packed in_proj and c_fc are
+column layers, out_proj, c_proj and proj row layers, and the patch conv is
+split by its output features: a rank runs K2 on its own heads, its slice of
+the packed weight holding the same heads of q, of k and of v.
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvdfusion_tpu_torch.nn.layers import Conv2d, LayerNormFp32, Linear, dense, dot_attention
+from mvdfusion_tpu_torch.nn.layers import Conv2d, LayerNormFp32, Linear, column_dense, consumed, dense, dot_attention
 from mvdfusion_tpu_torch.ops.image import bicubic_resize
+from mvdfusion_tpu_torch.parallel.tensor import gather_from, reduce_from, scatter_to, split_of
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -46,10 +52,18 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x):
         B, N, C = x.shape
-        dh = C // self.heads
-        qkv = dense(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = (a.reshape(B, N, self.heads, dh) for a in qkv.chunk(3, dim=-1))
-        return self.out_proj(dot_attention(q, k, v, dh**-0.5).reshape(B, N, C))
+        dh, heads = C // self.heads, self.heads
+        s = split_of(self.in_proj_weight)
+        if s is None:
+            qkv = dense(x, self.in_proj_weight, self.in_proj_bias)
+        else:
+            qkv = column_dense(x, self.in_proj_weight, self.in_proj_bias, s)  # this rank's q | k | v slices
+            if heads % s.axis.size or split_of(self.out_proj.weight) is None:
+                qkv = gather_from(qkv, s.axis, -1, 3)
+            else:
+                heads //= s.axis.size
+        q, k, v = (a.reshape(B, N, heads, dh) for a in qkv.chunk(3, dim=-1))
+        return self.out_proj(dot_attention(q, k, v, dh**-0.5).reshape(B, N, heads * dh))
 
 
 class _MLP(nn.Module):
@@ -59,7 +73,7 @@ class _MLP(nn.Module):
         self.c_proj = Linear(4 * width, width)
 
     def forward(self, x):
-        h = self.c_fc(x)
+        h = consumed(self.c_fc, self.c_proj, x)
         return self.c_proj(h * torch.sigmoid(1.702 * h))  # QuickGELU
 
 
@@ -106,7 +120,12 @@ class VisionTransformer(nn.Module):
         for blk in self.transformer.resblocks:
             h = blk(h)
         cls_out = self.ln_post(h[:, 0])
-        return (cls_out @ self.proj.to(cls_out.dtype)).float()
+        s = split_of(self.proj)
+        if s is None:
+            return (cls_out @ self.proj.to(cls_out.dtype)).float()
+        # a row layer on (in, out): this rank's input rows, fp32 partials summed, then rounded once
+        part = scatter_to(cls_out, s.axis, -1).float() @ self.proj.to(cls_out.dtype).float()
+        return reduce_from(part, s.axis).to(cls_out.dtype).float()
 
 
 class _CLIPModel(nn.Module):

@@ -5,6 +5,15 @@ Conventions: activations are NHWC / (B, N, C) as in the JAX package; linear
 and conv layers compute in their weight's dtype (bf16 towers, fp32 norms and
 small MLPs); GroupNorm, LayerNorm and softmax run in fp32 islands and cast
 back. Parameter names follow the reference checkpoint's torch modules.
+
+Under tensor parallelism (parallel/mesh.py::shard_params_) a layer whose
+weight carries a Split runs on its shard (parallel/tensor.py): a column
+layer (outputs split) on `copy_to` of its input, its output gathered unless
+`local` is asked for by a row layer that consumes it; a row layer (inputs
+split) on its input's own slice (a whole input it cuts itself), its fp32
+partial products summed over the ranks, then rounded once and the bias
+added once, as `dense` rounds; a split conv on its output features, gathered
+after it. Biases stay whole and are sliced at use.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 
 from mvdfusion_tpu_torch.ops.attention import fused_attention, should_fuse_attention, xla_attention
 from mvdfusion_tpu_torch.ops.groupnorm import group_norm_act, gn_route
+from mvdfusion_tpu_torch.parallel.tensor import copy_to, gather_from, local_bias, reduce_from, scatter_to, split_of
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -42,12 +52,42 @@ def dense(x, weight, bias=None):
     return F.linear(x, weight) + bias.to(weight.dtype)
 
 
+def row_dense(x, weight, bias, split):
+    """A row layer: x (whole, or this rank's slice of the inputs) against
+    this rank's input columns of `weight`; the fp32 partial products summed
+    over the ranks, then rounded to the weight's dtype once and the bias
+    added once, where `dense` rounds."""
+    axis = split.axis
+    if x.shape[-1] == weight.shape[1] * axis.size:
+        x = scatter_to(x, axis, -1)
+    y = reduce_from(F.linear(x.to(weight.dtype).float(), weight.float()), axis).to(weight.dtype)
+    return y if bias is None else y + bias.to(weight.dtype)
+
+
+def column_dense(x, weight, bias, split):
+    """A column layer's output slice: this rank's outputs (of each packed
+    block) of x @ weight^T + bias."""
+    return dense(copy_to(x, split.axis), weight, local_bias(bias, weight))
+
+
 class Linear(nn.Linear):
     """nn.Linear over the last dim, computing in the weight's dtype and
-    rounding as flax's Dense (`dense`)."""
+    rounding as flax's Dense (`dense`); split: a column or a row layer."""
+
+    def local(self, x):
+        """The output, left as this rank's slice where the layer is a column
+        layer (for a row layer that consumes it)."""
+        s = split_of(self.weight)
+        if s is None:
+            return dense(x, self.weight, self.bias)
+        if s.dim == 0:
+            return column_dense(x, self.weight, self.bias, s)
+        return row_dense(x, self.weight, self.bias, s)
 
     def forward(self, x):
-        return dense(x, self.weight, self.bias)
+        s = split_of(self.weight)
+        y = self.local(x)
+        return gather_from(y, s.axis, -1, s.parts) if s is not None and s.dim == 0 else y
 
 
 class Conv1x1(nn.Module):
@@ -68,11 +108,15 @@ class Conv1x1(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d on NHWC input (a channels-last view, no copy), computing in
-    the weight's dtype."""
+    the weight's dtype; split (output features), its outputs gathered."""
 
     def forward(self, x):
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
-        return y.permute(0, 2, 3, 1)
+        x = x.to(self.weight.dtype)
+        s = split_of(self.weight)
+        if s is None:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = self._conv_forward(copy_to(x, s.axis).permute(0, 3, 1, 2), self.weight, local_bias(self.bias, self.weight))
+        return gather_from(y.permute(0, 2, 3, 1), s.axis, -1)
 
 
 class GroupNorm32(nn.Module):
@@ -112,13 +156,30 @@ def dot_attention(q, k, v, scale: float):
 
 
 class GEGLU(nn.Module):
+    """value * gelu(gate) from one packed projection [value | gate]; split,
+    each rank holds the same rows of both halves, so its slice of the
+    product is its own."""
+
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = Linear(dim_in, dim_out * 2)
 
-    def forward(self, x):
-        y, gate = self.proj(x).chunk(2, dim=-1)
+    def local(self, x):
+        y, gate = self.proj.local(x).chunk(2, dim=-1)
         return y * F.gelu(gate.float()).to(y.dtype)
+
+    def forward(self, x):
+        s = split_of(self.proj.weight)
+        y = self.local(x)
+        return y if s is None else gather_from(y, s.axis, -1)
+
+
+def consumed(producer, consumer: Linear, x):
+    """producer's output as `consumer`'s input: left as this rank's slice
+    where `consumer` is a row layer (which takes a slice or a whole input),
+    else whole."""
+    s = split_of(consumer.weight)
+    return producer.local(x) if s is not None and s.dim == 1 else producer(x)
 
 
 class FeedForward(nn.Module):
@@ -130,7 +191,7 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), Linear(inner, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return self.net[2](consumed(self.net[0], self.net[2], x))
 
 
 class CrossAttention(nn.Module):
@@ -148,16 +209,37 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim), nn.Identity()])
 
+    def one_key(self, context):
+        """to_out(to_v(context)): the output for a 1-key context."""
+        return self.to_out[0](consumed(self.to_v, self.to_out[0], context))
+
+    def _local_heads(self) -> int:
+        """The heads this rank runs: all of them, or where to_out is a row
+        layer over n ranks and n divides them, heads / n (q, k and v then
+        cut to this rank's heads, to_out reading the slice)."""
+        s = split_of(self.to_out[0].weight)
+        return self.heads if s is None or self.heads % s.axis.size else self.heads // s.axis.size
+
+    def _project(self, layer: Linear, x, heads: int):
+        """layer(x) as this rank's `heads` heads."""
+        s = split_of(layer.weight)
+        if heads == self.heads:
+            return layer(x)
+        if s is not None:
+            return layer.local(x)
+        return scatter_to(layer(x), split_of(self.to_out[0].weight).axis, -1)
+
     def forward(self, x, context=None):
         if context is not None and context.shape[1] == 1:
-            out = self.to_out[0](self.to_v(context))
+            out = self.one_key(context)
             return out.expand(*x.shape[:2], out.shape[-1])
         context = x if context is None else context
         B, Nq, _ = x.shape
         Nk = context.shape[1]
-        q = self.to_q(x).reshape(B, Nq, self.heads, self.dim_head)
-        k = self.to_k(context).reshape(B, Nk, self.heads, self.dim_head)
-        v = self.to_v(context).reshape(B, Nk, self.heads, self.dim_head)
+        h = self._local_heads()
+        q = self._project(self.to_q, x, h).reshape(B, Nq, h, self.dim_head)
+        k = self._project(self.to_k, context, h).reshape(B, Nk, h, self.dim_head)
+        v = self._project(self.to_v, context, h).reshape(B, Nk, h, self.dim_head)
         out = dot_attention(q, k, v, self.dim_head**-0.5).reshape(B, Nq, -1)
         return self.to_out[0](out)
 
@@ -193,7 +275,7 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, out)
 
     def forward(self, x):
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.fc2(gelu_exact(consumed(self.fc1, self.fc2, x)))
 
 
 def silu(x):

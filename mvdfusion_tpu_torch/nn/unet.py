@@ -19,6 +19,13 @@ backward (torch.utils.checkpoint per ResBlock and site), keeping only the
 blocks' boundaries.
 The up-path skip joins are concatenations: the reference's split-skip form
 computes the same function piece by piece for the TPU's layouts.
+
+Under tensor parallelism (parallel/mesh.py) the ResBlocks' convs and
+emb_layers, the time embedding and the C=1280 sites' attention and
+FeedForward run split (nn/layers.py); a split conv's output is gathered so
+that K1 sees whole maps. The sites that take a kernel read their weights
+whole: at C <= 768 the layout keeps them whole, and K6 at the C=1280 sites
+reads them gathered into its prepared weights.
 """
 
 from __future__ import annotations
@@ -37,12 +44,14 @@ from mvdfusion_tpu_torch.nn.layers import (
     GroupNorm32,
     LayerNormFp32,
     Linear,
+    consumed,
     silu,
     timestep_embedding,
 )
 from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.block import BlockWeights, block_route, prepared_site_weights, transformer_block
 from mvdfusion_tpu_torch.ops.image import area_downsample, nearest_upsample2x
+from mvdfusion_tpu_torch.parallel.tensor import full_param
 
 
 class ResBlock(nn.Module):
@@ -93,7 +102,7 @@ class BasicTransformerBlock(nn.Module):
 def _attn2_contribution(block: BasicTransformerBlock, ctx):
     """to_out(to_v(ctx)): attn2's exact output for a 1-key context.
     ctx (B, Cc) -> (B, C) or (B, N, Cc) -> (B, N, C)."""
-    return block.attn2.to_out[0](block.attn2.to_v(ctx))
+    return block.attn2.one_key(ctx)
 
 
 def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int, fuse_mode: str):
@@ -125,12 +134,14 @@ def _site_weights(p: tuple) -> BlockWeights:
 def _kernel_site(module, x, a2, params, dt, form):
     """A site on its kernel form: x (B, H, W, C) -> (B, H, W, C). Where the
     kernels read the prepared weights and a gradient is wanted, the
-    parameters go along as they are for the backward."""
+    parameters go along as they are for the backward. Split parameters are
+    gathered whole (into the prepared weights, once a version)."""
     B, H, W, C = x.shape
+    whole = lambda: tuple(full_param(p) for p in params)
     prepared = None
     if _lib.reads_prepared(x):
-        prepared = prepared_site_weights(module, params, lambda: _site_weights(params), dt)
-    w = _site_weights(params) if prepared is None or _lib.needs_grad(x, a2, params) else prepared
+        prepared = prepared_site_weights(module, params, lambda: _site_weights(whole()), dt)
+    w = _site_weights(whole()) if prepared is None or _lib.needs_grad(x, a2, params) else prepared
     return transformer_block(x.reshape(B, H * W, C).to(dt), a2, w, module.heads, form,
                              prepared).reshape(B, H, W, C)
 
@@ -288,7 +299,7 @@ class UNetModel(nn.Module):
 
     def forward(self, x, t, context, volume_levels, fuse_mode: str = "auto", remat: bool = False):
         dt = self.out[2].weight.dtype
-        emb = self.time_embed[0](timestep_embedding(t, self.model_channels))
+        emb = consumed(self.time_embed[0], self.time_embed[2], timestep_embedding(t, self.model_channels))
         emb = self.time_embed[2](silu(emb))
         x = x.to(dt)
         context = context.to(dt)

@@ -10,6 +10,10 @@ The GroupNorms of maps above 2^20 elements an image take the tiled form
 reference's MVDF_GN_TILED=1 (ops/groupnorm.py::gn_route). MVDF_CONV3X3=1,
 off by default as in the reference, sends the ResBlocks of maps of at least
 64^2 through the fused conv (ops/conv3x3.py, K8).
+
+Under tensor parallelism (parallel/mesh.py) each conv is split by its output
+features and gathered after it (nn/layers.py::Conv2d), so K7 sees whole
+maps; K8 reads its weights gathered whole (parallel/tensor.py::whole).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from mvdfusion_tpu_torch.nn.layers import Conv1x1, Conv2d, GroupNorm32, dot_attention
 from mvdfusion_tpu_torch.ops import conv3x3
 from mvdfusion_tpu_torch.ops.image import nearest_upsample2x
+from mvdfusion_tpu_torch.parallel.tensor import whole
 
 
 class VAEResnetBlock(nn.Module):
@@ -51,10 +56,10 @@ class VAEResnetBlock(nn.Module):
         dt = self.conv1.weight.dtype
         zrow = torch.zeros(B, cout, dtype=torch.float32, device=x.device)
         a1, b1 = conv3x3.gn_fold_affine(x.reshape(B, H * W, -1), self.norm1.weight, self.norm1.bias, 32, 1e-6)
-        h = conv3x3.gn_silu_conv3x3(x.to(dt), a1, b1, self.conv1.weight, self.conv1.bias, zrow, None)
+        h = conv3x3.gn_silu_conv3x3(x.to(dt), a1, b1, whole(self.conv1.weight), self.conv1.bias, zrow, None)
         a2, b2 = conv3x3.gn_fold_affine(h.reshape(B, H * W, -1), self.norm2.weight, self.norm2.bias, 32, 1e-6)
         res = self.nin_shortcut(x) if self.nin_shortcut is not None else x.to(dt)
-        return conv3x3.gn_silu_conv3x3(h, a2, b2, self.conv2.weight, self.conv2.bias, zrow, res)
+        return conv3x3.gn_silu_conv3x3(h, a2, b2, whole(self.conv2.weight), self.conv2.bias, zrow, res)
 
 
 class VAEAttnBlock(nn.Module):

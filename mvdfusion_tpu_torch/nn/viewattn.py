@@ -24,6 +24,12 @@ bilinear interpolation), the view-invariant parts form `b_acc`, and the
 geometric parts are repacked into the K4 kernel's `kall` rows. Names follow
 view_attn_efficient2.py (z_embedder.0, pre_layer_b.0, aggregation_transformer
 .layer_list.{i}, weight_layer, final_layer_b).
+
+`views` (a slice of the target views) restricts the queries to those views'
+rays, as a rank of the sp axis runs it (parallel/mesh.py): N = |views| H W D
+query points, each still gathering from and attending across all V views'
+embedded latents, so the caller passes every view's noisy latent. GridAttn
+is whole under tensor parallelism (the JAX rule replicates view_attn).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdfusion_tpu_torch.core.schedule import DDPMSchedule
-from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_center, transform_points_ndc
+from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_center, camera_slice, transform_points_ndc
 from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
 from mvdfusion_tpu_torch.geometry.harmonics import harmonic_embed, harmonic_frequencies
 from mvdfusion_tpu_torch.geometry.rays import pixel_rays, plucker_coords, rays_to_points
@@ -204,23 +210,27 @@ class GridAttn(nn.Module):
         jitter_noise,  # (B, H, W, D) unit normal
         overwrite_attn_depth=None,  # (B, H, W, 1): the sampler's previous pred_x0 depth
         fuse_mode: str = "auto",  # "auto": K4 where its gate is open; "never": the general path
+        views: slice | None = None,  # the query views (all by default); t, jitter, overwrite: all B views
     ):
-        B, H, W, _ = noisy_latents.shape
-        D, V = self.n_pts_per_ray, B
+        V, H, W, _ = noisy_latents.shape
+        D = self.n_pts_per_ray
+        q = slice(0, V) if views is None else views
+        B = q.stop - q.start  # query views
         dt = self.pre_layer_b[0].weight.dtype
 
         # 1. depth: the unbiased estimate (or the given override) + jitter
+        t = t[q]
         sqrt_acp = sched.sqrt_alphas_cumprod[t]
         depth_std = (sched.sqrt_one_minus_alphas_cumprod[t] / sqrt_acp / 10.0)[:, None, None, None]
         if overwrite_attn_depth is None:
-            depth = noisy_latents[..., 4:5].float() / sqrt_acp[:, None, None, None]
+            depth = noisy_latents[q][..., 4:5].float() / sqrt_acp[:, None, None, None]
         else:
-            depth = overwrite_attn_depth.float()
-        depth = depth.expand(B, H, W, D) + depth_std * jitter_noise.float()
+            depth = overwrite_attn_depth[q].float()
+        depth = depth.expand(B, H, W, D) + depth_std * jitter_noise[q].float()
         depth = torch.clamp((depth + 1.0) * 0.5, 0.0, 1.0) * DEPTH_SCALE + DEPTH_SHIFT
 
         # 2. rays and world points
-        rays = pixel_rays(batch_cameras, H, W)
+        rays = pixel_rays(batch_cameras if views is None else camera_slice(batch_cameras, q), H, W)
         pts_flat = rays_to_points(rays, depth).reshape(1, B * H * W * D, 3)
         N = B * H * W * D
 
@@ -235,7 +245,7 @@ class GridAttn(nn.Module):
         centers = camera_center(batch_cameras)  # (V, 3)
         q_dir = rays.directions / torch.clamp(torch.linalg.norm(rays.directions, dim=-1, keepdim=True), min=1e-12)
         q_dir = q_dir[:, :, :, None, :].expand(B, H, W, D, 3).reshape(1, N, 3)
-        q_origin = centers[:, None, None, None, :].expand(B, H, W, D, 3).reshape(1, N, 3)
+        q_origin = centers[q, None, None, None, :].expand(B, H, W, D, 3).reshape(1, N, 3)
         acc_b = (
             grid_sample(input_feat_p, -ndc_in[..., :2])
             + self._part(4, hembed(plucker_coords(q_origin, q_dir)))
@@ -271,7 +281,7 @@ class GridAttn(nn.Module):
         if self.keep_top_k_views:
             # a static window of top_k + 1 views by index, wrapping; tokens are view-major
             offsets = torch.arange(-(self.top_k // 2), self.top_k // 2 + 1, device=acc_v.device)
-            idx = (torch.arange(N, device=acc_v.device) // (H * W * D))[None, :] + offsets[:, None]
+            idx = (torch.arange(N, device=acc_v.device) // (H * W * D) + q.start)[None, :] + offsets[:, None]
             acc_v = torch.gather(acc_v, 0, (idx % V)[:, :, None].expand(-1, -1, acc_v.shape[-1]))
         tokens = gelu_exact((acc_v + acc_b).transpose(0, 1))  # (N, V', hid)
         out, w = self.aggregation_transformer(tokens, t_embed[:1].to(dt))

@@ -22,6 +22,15 @@ embed_camera_pose=False the legacy zero123 cc_projection.{weight,bias}).
 kernels or their module paths; pipeline/trainer.py runs the train step
 under its own (`TrainConfig.train_fuse_mode`, "never" by default).
 Randomness comes from a torch.Generator or is given explicitly.
+
+`mesh` (set by parallel/mesh.py::shard_params_) places the model on a
+(dp, sp, tp) mesh. Its tp axis splits the towers' layers (nn/layers.py).
+On its sp axis p_losses splits a scene's target views: each rank encodes
+its views' latents and gathers all V (`gather_rows`), draws every view's
+noise as one rank does, and runs GridAttn's queries and the UNet on its
+views only (apply_model's `views`); its loss is its views' squared errors
+over the scene's whole count, times sp, so that the mean over the sp ranks
+(the trainer's gradient average, the reported loss) is the scene's loss.
 """
 
 from __future__ import annotations
@@ -35,11 +44,12 @@ import torch.nn as nn
 from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule, q_sample
 from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_slice, make_cameras, relative_cameras
 from mvdfusion_tpu_torch.nn.clip import FrozenCLIPImageEmbedder
-from mvdfusion_tpu_torch.nn.layers import GroupNorm32, LayerNormFp32, Linear, silu, timestep_embedding
+from mvdfusion_tpu_torch.nn.layers import GroupNorm32, LayerNormFp32, Linear, consumed, silu, timestep_embedding
 from mvdfusion_tpu_torch.nn.unet import UNetModel, volume_pyramid
 from mvdfusion_tpu_torch.nn.vae import AutoencoderKL
 from mvdfusion_tpu_torch.nn.viewattn import GridAttn
 from mvdfusion_tpu_torch.ops.image import area_downsample
+from mvdfusion_tpu_torch.parallel.tensor import even_slices, gather_rows
 from mvdfusion_tpu_torch.utils.common import normalize, unnormalize
 
 
@@ -137,6 +147,13 @@ class ViewFusion(nn.Module):
         with torch.device(device):
             self._build(cfg)
         self._sched = {}
+        self.mesh = None  # parallel/mesh.py::shard_params_ sets it
+
+    def sp_views(self, B: int):
+        """(sp axis, each sp rank's slice of B target views), or None
+        without an sp axis."""
+        axis = None if self.mesh is None else self.mesh.axes["sp"]
+        return None if axis is None or axis.size == 1 else (axis, even_slices(B, axis.size))
 
     def _build(self, cfg: ViewFusionConfig):
         self.cfg = c = cfg
@@ -217,7 +234,7 @@ class ViewFusion(nn.Module):
         return torch.cat([self.decode_latents(c) for c in torch.split(z, max_batch)])
 
     def embed_time(self, t):
-        h = self.time_embed[0](timestep_embedding(t, self.cfg.time_embed_dim))
+        h = consumed(self.time_embed[0], self.time_embed[2], timestep_embedding(t, self.cfg.time_embed_dim))
         return self.time_embed[2](silu(h))
 
     def cc_proj(self, x):
@@ -228,16 +245,23 @@ class ViewFusion(nn.Module):
         return self.cc_projection[4](silu(x))
 
     # -------------------------------------------------------------- data prep
-    def prepare_batch(self, images, R, T, f, c, input_idx, target_idx, depths=None, azimuth=None, elevation=None):
+    def prepare_batch(self, images, R, T, f, c, input_idx, target_idx, depths=None, azimuth=None, elevation=None,
+                      sp=None):
         """images (S, H, W, 3) in [0, 1]; cameras (S, ...); input_idx (1,),
         target_idx (B,) -> (batch_latents, batch_cameras, input_latents,
         input_cameras, clip_v_embed). azimuth and elevation (S,), in radians,
-        are read by the legacy pose path only."""
+        are read by the legacy pose path only. `sp` (sp_views' pair): this
+        rank encodes its slice of the targets, the latents gathered."""
         S, H, W, _ = images.shape
         B = target_idx.shape[0]
         ls = self.cfg.latent_size
         sel = torch.cat([input_idx, target_idx])
-        latents = self.encode_images(images[sel])
+        if sp is None:
+            latents = self.encode_images(images[sel])
+        else:
+            axis, cuts = sp
+            own = self.encode_images(images[torch.cat([input_idx, target_idx[cuts[axis.rank]]])])
+            latents = torch.cat([own[:1], gather_rows(own[1:], axis, [v.stop - v.start for v in cuts])])
         input_latents, batch_latents = latents[:1], latents[1:]
         if depths is not None:
             d = area_downsample(normalize(depths[sel]), H // ls)
@@ -280,12 +304,12 @@ class ViewFusion(nn.Module):
         return x, levels
 
     def _frustum(self, noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed, jitter_noise,
-                 prev_depth):
+                 prev_depth, views=None):
         B = noisy_latents.shape[0]
         frustum = self.view_attn(
             noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
             self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
-            overwrite_attn_depth=prev_depth, fuse_mode=self.cfg.fuse_mode,
+            overwrite_attn_depth=prev_depth, fuse_mode=self.cfg.fuse_mode, views=views,
         )
         return torch.zeros_like(frustum) if self.cfg.ablate_frustum else frustum
 
@@ -293,15 +317,19 @@ class ViewFusion(nn.Module):
         return self.unet(x, t, ctx, levels, fuse_mode=self.cfg.fuse_mode, remat=self.cfg.unet_remat)
 
     def apply_model(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
-                    jitter_noise, prev_depth=None, drop=None):
+                    jitter_noise, prev_depth=None, drop=None, views=None):
         """One conditional pass (training, or CFG 1). `drop` (B,), a uniform
         draw in [0, 1), applies the per-sample condition dropout where
         cfg.drop_conditions: four disjoint 5% bands drop the CLIP context
         (0.15, 0.2], the frustum (0.1, 0.15], the concat latents (0.05, 0.1]
-        and all three [0, 0.05]."""
+        and all three [0, 0.05]. `views` (a slice of the B views) predicts
+        those views only, GridAttn still reading all B views' latents."""
         t_embed = self.embed_time(t)
         frustum = self._frustum(noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed,
-                                jitter_noise, prev_depth)
+                                jitter_noise, prev_depth, views)
+        if views is not None:
+            noisy_latents, clip_v_embed, t = noisy_latents[views], clip_v_embed[views], t[views]
+            drop = None if drop is None else drop[views]
         clip_embed = self.cc_proj(clip_v_embed)
         x, levels = self._unet_inputs(noisy_latents, input_latents, frustum)
         if drop is not None and self.cfg.drop_conditions:
@@ -375,9 +403,10 @@ class ViewFusion(nn.Module):
             raise NotImplementedError(f"objective {self.cfg.objective!r}: 'noise' or 'x_start', as in the reference")
         if feed_prev_depth is None:
             feed_prev_depth = self.cfg.feed_prev_depth
+        sp = self.sp_views(target_idx.shape[0])
         with torch.no_grad():
             batch_latents, batch_cams, input_latents, input_cams, clip_v = self.prepare_batch(
-                images, R, T, f, c, input_idx, target_idx, depths=depths)
+                images, R, T, f, c, input_idx, target_idx, depths=depths, sp=sp)
         B = batch_latents.shape[0]
         given = dict(t=t, noise=noise, jitter_noise=jitter_noise, drop=drop)
         if any(v is None for v in given.values()):
@@ -386,10 +415,13 @@ class ViewFusion(nn.Module):
         t, noise = given["t"], given["noise"]
         noisy = q_sample(self.sched(batch_latents.device), batch_latents, t, noise)
         prev_depth = input_latents[..., 4:5].expand_as(noisy[..., 4:5]) if feed_prev_depth else None
+        mine = None if sp is None else sp[1][sp[0].rank]
         pred = self.apply_model(noisy, batch_cams, input_latents, input_cams, clip_v, t, given["jitter_noise"],
-                                prev_depth=prev_depth, drop=given["drop"])
+                                prev_depth=prev_depth, drop=given["drop"], views=mine)
         target = noise if self.cfg.objective == "noise" else batch_latents
-        return torch.mean((target - pred) ** 2)
+        if sp is None:
+            return torch.mean((target - pred) ** 2)
+        return torch.sum((target[mine] - pred) ** 2) * (sp[0].size / target.numel())
 
 
 def randomize_(model: nn.Module, seed: int = 0) -> nn.Module:

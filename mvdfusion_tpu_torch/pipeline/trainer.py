@@ -29,6 +29,20 @@ over the ranks once per optimizer step, just before the update: the mean is
 linear, so this equals averaging every call's gradient, at 1/grad_accum_step
 of the traffic (DDP's no_sync). The skip test, the clip, AdamW and the EMA
 then read the same gradient on every rank, which so hold the same masters.
+
+Tensor and view parallelism. On a model placed on a (dp, sp, tp) mesh
+(parallel/mesh.py::shard_params_, `model.mesh`) the average runs over dp x
+sp (the mesh's "grad" axis): the tp ranks of one (dp, sp) slice hold
+their own slice of a split parameter's gradient, and the same gradient of
+a whole one up to the order of the atomic adds of some backward kernels
+(cuDNN's, grid_sample's: on the card two ranks' copies came apart), so the
+whole ones are averaged over tp too (exact where they agree).
+AdamW and the EMA are elementwise, so they run on the slices; the global
+norm of the clip sums the split tensors' squares over tp and counts the
+whole ones once; the skip test's flag is summed over tp. Checkpoints hold
+whole tensors: state_payload gathers the slices over tp (every rank of the
+tp group calls it) and restore_state cuts each rank's slice, so a
+checkpoint written at one tp restores at any other, and in the demo.
 """
 
 from __future__ import annotations
@@ -38,8 +52,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from mvdfusion_tpu_torch import parallel
+from mvdfusion_tpu_torch.parallel.mesh import gather_tensor
+from mvdfusion_tpu_torch.parallel.tensor import ONE, all_reduce_fp32, shard, split_of
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 _MAX_CONSECUTIVE_NONFINITE = 100  # optax.apply_if_finite's max_consecutive_errors here
@@ -74,12 +91,20 @@ class TrainState:
     """params: name -> master tensor (the model's parameter itself where
     dtypes agree); opt_state: AdamW's moments and count, the accumulator and
     the skip counters (see _init_opt); step: calls so far; ema: name ->
-    EMA tensor, or None."""
+    EMA tensor, or None; splits: name -> the Split of each parameter held
+    as this rank's slice (tensor parallelism)."""
 
     params: dict
     opt_state: dict
     step: int = 0
     ema: Optional[dict] = None
+    splits: dict = dataclasses.field(default_factory=dict)
+
+
+def _axis(model, name: str):
+    """The model's mesh axis `name`, or None (every rank) without a mesh."""
+    mesh = getattr(model, "mesh", None)
+    return None if mesh is None else mesh.axes[name]
 
 
 def _site_kinds(model) -> dict:
@@ -176,7 +201,8 @@ def init_train_state(model, tc: TrainConfig) -> TrainState:
                 p.data = params[n].to(dts[n])
             p.requires_grad_(mask[n])
     ema = {n: t.detach().clone() for n, t in params.items()} if tc.ema_decay > 0 else None
-    return TrainState(params=params, opt_state=_init_opt(params, mask), step=0, ema=ema)
+    splits = {n: split_of(p) for n, p in model.named_parameters() if split_of(p) is not None}
+    return TrainState(params=params, opt_state=_init_opt(params, mask), step=0, ema=ema, splits=splits)
 
 
 def eval_params(state: TrainState) -> dict:
@@ -236,6 +262,19 @@ def scene_batch_loss(model, batch: dict, generator=None, draws=None):
     return total / n, grads
 
 
+def global_norm(model, state: TrainState, names, gs) -> torch.Tensor:
+    """The global L2 norm of the gradients `gs` of parameters `names`: under
+    tp the split tensors' squares summed over the tp ranks, the whole ones
+    counted once."""
+    norms = torch.stack(torch._foreach_norm(gs))
+    tp = _axis(model, "tp") or ONE
+    if tp.size == 1:
+        return torch.linalg.vector_norm(norms)
+    cut = torch.tensor([n in state.splits for n in names], device=norms.device)
+    sq = norms * norms
+    return torch.sqrt(sq[~cut].sum() + all_reduce_fp32(sq[cut].sum(), tp))
+
+
 def _optimizer_update(model, state: TrainState, tc: TrainConfig, grads: dict) -> bool:
     """One masked AdamW update of the trainable masters from `grads` (name ->
     fp32 mean gradient), after the skip test and the clip; refreshes the
@@ -243,17 +282,20 @@ def _optimizer_update(model, state: TrainState, tc: TrainConfig, grads: dict) ->
     opt = state.opt_state
     names = list(grads)
     gs = [grads[n] for n in names]
+    tp = _axis(model, "tp") or ONE
     if tc.skip_nonfinite:
         # one flag for the whole set (the check GradScaler runs; the scale 1 leaves gs as they are)
         found = torch.zeros(1, device=gs[0].device)
         torch._amp_foreach_non_finite_check_and_unscale_(gs, found, torch.ones((), device=gs[0].device))
+        if tp.size > 1:  # the slices of split tensors differ over tp
+            dist.all_reduce(found, group=tp.group)
         finite = not bool(found.item())
         opt["notfinite_count"] = 0 if finite else opt["notfinite_count"] + 1
         opt["total_notfinite"] += 0 if finite else 1
         if not finite and opt["notfinite_count"] <= _MAX_CONSECUTIVE_NONFINITE:
             return False
     if tc.grad_clip:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        norm = global_norm(model, state, names, gs)
         if not bool(norm < tc.grad_clip):
             gs = torch._foreach_div(gs, norm)
             torch._foreach_mul_(gs, tc.grad_clip)
@@ -318,7 +360,10 @@ def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator
         opt["mini_step"] = (opt["mini_step"] + 1) % k
         if emit:
             # the same tensors in the same order on every rank (a parameter no scene reached holds zeros)
-            parallel.all_reduce_mean_(list(opt["acc"].values()))
+            parallel.all_reduce_mean_(list(opt["acc"].values()), _axis(model, "grad"))
+            if (_axis(model, "tp") or ONE).size > 1:  # whole parameters: one gradient on every tp rank
+                parallel.all_reduce_mean_([a for n, a in opt["acc"].items() if n not in state.splits],
+                                          _axis(model, "tp"))
             _optimizer_update(model, state, tc, opt["acc"])
             torch._foreach_zero_(list(opt["acc"].values()))
         if state.ema is not None:
@@ -337,8 +382,10 @@ def train_step(model, state: TrainState, batch: dict, tc: TrainConfig, generator
 
 
 def state_payload(state: TrainState, epoch: int) -> dict:
-    """The TrainState and epoch as a checkpoint payload (tensors detached)."""
-    det = lambda d: None if d is None else {n: t.detach() for n, t in d.items()}
+    """The TrainState and epoch as a checkpoint payload (tensors detached),
+    with whole tensors: a split one gathered over tp (a collective every
+    rank of the tp group calls)."""
+    det = lambda d: None if d is None else {n: gather_tensor(t, state.splits.get(n)) for n, t in d.items()}
     # between optimizer steps the accumulator is all zeros: it is left out
     skip = {"acc"} if state.opt_state["mini_step"] == 0 else set()
     opt = {k: det(v) if isinstance(v, dict) else v for k, v in state.opt_state.items() if k not in skip}
@@ -349,15 +396,17 @@ def state_payload(state: TrainState, epoch: int) -> dict:
 
 
 def restore_state(model, state: TrainState, payload: dict) -> int:
-    """Copy a checkpoint payload into `state` and the model's compute copies,
-    in place. Returns the payload's epoch."""
+    """Copy a checkpoint payload (whole tensors) into `state` and the model's
+    compute copies, in place, each rank taking its slice of a split one.
+    Returns the payload's epoch."""
+    mine = lambda n, t: t if n not in state.splits else shard(t, state.splits[n])
     with torch.no_grad():
         for n, t in payload["params"].items():
-            state.params[n].copy_(t)
+            state.params[n].copy_(mine(n, t))
         for k, v in payload["opt_state"].items():
             if isinstance(v, dict):
                 for n, t in v.items():
-                    state.opt_state[k][n].copy_(t)
+                    state.opt_state[k][n].copy_(mine(n, t))
             else:
                 state.opt_state[k] = v
         if "acc" not in payload["opt_state"]:
@@ -365,7 +414,7 @@ def restore_state(model, state: TrainState, payload: dict) -> int:
                 t.zero_()
         if state.ema is not None and "ema" in payload:
             for n, t in payload["ema"].items():
-                state.ema[n].copy_(t)
+                state.ema[n].copy_(mine(n, t))
     load_params(model, state.params)
     state.step = int(payload["step"])
     return int(payload["epoch"])

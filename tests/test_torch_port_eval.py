@@ -654,14 +654,16 @@ def test_demo_cli_writes_artifacts_and_metrics(scene_dirs, tmp_path):
     keys = ("psnr", "ssim", "perceptual", "photo_mae", "depth_agree_rate", "covis_frac")
     assert set(metrics["summary"]) == set(keys) and len(metrics["scenes"]) == 1
     assert all(np.isfinite(metrics["summary"][k]) and np.isfinite(metrics["scenes"][0][k]) for k in keys)
-    # what is not ported raises rather than degrades: tensor and view parallelism
+    # tensor and view parallelism are ported (tests/test_torch_port_tp*.py): the train CLI takes --tp and
+    # make_mesh lays out sp; a layout larger than its ranks raises rather than degrades
     from mvdfusion_tpu_torch.cli import train as train_cli
     from mvdfusion_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="tensor and view parallelism"):
-        train_cli.main(["-c", str(cfgp), "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="tensor and view parallelism"):
-        make_mesh(sp=2, world=2)
+    assert train_cli.parse_args(["-c", str(cfgp), "--tp", "2"]).tp == 2
+    mesh = make_mesh(sp=2, world=2, rank=1)
+    assert (mesh.dp, mesh.sp, mesh.tp, mesh.coords) == (1, 2, 1, (0, 1, 0))
+    with pytest.raises(ValueError, match="needs more than"):
+        make_mesh(sp=2, tp=2, world=2)
     # an existing ckpt_path is restored, not skipped: a file that is not a
     # checkpoint of the port's trainer fails in torch.load
     ckpt = tmp_path / "absent.ckpt"

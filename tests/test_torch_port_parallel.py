@@ -1,8 +1,8 @@
 """The port's data parallelism (mvdfusion_tpu_torch/parallel/mesh.py and its
 users) on the CPU, at the tiny config, ranks as OS processes over gloo:
 
-(a) make_mesh's default dp and its size check against the JAX make_mesh;
-    tp and sp raise.
+(a) make_mesh's default dp, its (dp, sp, tp) shape and rank coordinates,
+    and its size check against the JAX make_mesh.
 (b) A two-rank train step, one scene a rank with the JAX side's draws of
     that scene: the gradient the optimizer reads (averaged over the ranks)
     and the loss against jax.value_and_grad of the JAX scene_batch_loss on
@@ -112,11 +112,29 @@ def test_make_mesh_refuses_more_ranks_than_there_are(n, dp):
         make_mesh(dp=dp, world=n)
 
 
-@pytest.mark.parametrize("tp,sp", [(2, 1), (1, 2), (2, 2)])
-def test_make_mesh_tp_and_sp_raise(tp, sp):
-    jmake_mesh(dp=2, tp=tp, sp=sp, devices=jax.devices()[: 2 * tp * sp])  # the JAX package builds these
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: tensor and view parallelism"):
-        make_mesh(dp=2, tp=tp, sp=sp, world=8)
+@pytest.mark.parametrize("n,dp,tp,sp", [(8, None, 2, 1), (8, None, 1, 2), (8, 2, 2, 2), (4, 1, 2, 2), (8, None, 4, 1),
+                                         (8, 1, 2, 3), (8, 2, 1, 4)])
+def test_make_mesh_tp_and_sp_match_jax(n, dp, tp, sp):
+    """make_mesh(dp, tp, sp)'s shape and every rank's (d, s, t) against the
+    JAX make_mesh's device grid (tp fastest, then sp, then dp); ranks past
+    the layout have no coordinates."""
+    devices = jax.devices()[:n]
+    ref = jmake_mesh(dp=dp, tp=tp, sp=sp, devices=devices)
+    shape = dict(ref.shape)
+    grid = np.vectorize(lambda d: d.id)(ref.devices).reshape(shape["dp"], shape.get("sp", 1), shape["tp"])
+    for r in range(n):
+        ours = make_mesh(dp=dp, tp=tp, sp=sp, world=n, rank=r)
+        assert (ours.dp, ours.sp, ours.tp, ours.world, ours.rank) == (shape["dp"], shape.get("sp", 1), shape["tp"], n, r)
+        at = np.argwhere(grid == devices[r].id)
+        assert ours.coords == (tuple(int(i) for i in at[0]) if len(at) else None), (r, ours.coords, at)
+
+
+@pytest.mark.parametrize("n,dp,tp,sp", [(4, 2, 2, 2), (8, 2, 4, 2), (8, 3, 3, 1)])
+def test_make_mesh_tp_and_sp_refuse_more_ranks_than_there_are(n, dp, tp, sp):
+    with pytest.raises(AssertionError):
+        jmake_mesh(dp=dp, tp=tp, sp=sp, devices=jax.devices()[:n])
+    with pytest.raises(ValueError, match="needs more than"):
+        make_mesh(dp=dp, tp=tp, sp=sp, world=n)
 
 
 # ------------------------------------------------------------ (b), (c)

@@ -174,8 +174,8 @@ def test_train_cli_on_fake_gso(tmp_path, fake_gso):
     epoch): a checkpoint a step and `latest`, the vis grid at step 2 and the
     loss plot; the same three steps as 2 + a resumed 1 give the same
     checkpoint bit for bit (the epoch boundary falls between them); the
-    regression preview writes its grid; tensor parallelism raises, and
-    --multihost outside a torchrun launch."""
+    regression preview writes its grid; a tp layout larger than the ranks
+    raises, and --multihost outside a torchrun launch."""
     from mvdfusion_tpu_torch.cli.train import main
 
     base = ["--tiny", "--device", "cpu", "--seed", "3"]
@@ -200,9 +200,12 @@ def test_train_cli_on_fake_gso(tmp_path, fake_gso):
     c = tmp_path / "c"
     main(["-c", _cli_config(tmp_path, fake_gso, c, regression=True)] + base + ["--max-steps", "2"])
     assert (c / "vis" / "0000002.jpg").stat().st_size > 0
-    for flags in (["--tp", "2"], ["--dp", "2", "--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: tensor and view parallelism"):
-            main(["-c", cfg_b, "--device", "cpu"] + flags)
+    # --tp runs (tests/test_torch_port_tp_cli.py); a layout larger than the ranks raises
+    from mvdfusion_tpu_torch.parallel import make_mesh
+
+    for dp, tp in ((2, 2), (1, 2)):
+        with pytest.raises(ValueError, match="needs more than"):
+            make_mesh(dp=dp, tp=tp, world=1)
     with pytest.raises(RuntimeError, match="torchrun"):  # --multihost outside a torchrun launch
         main(["-c", cfg_b, "--device", "cpu", "--multihost"])
 
