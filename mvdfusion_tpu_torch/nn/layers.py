@@ -52,6 +52,34 @@ def dense(x, weight, bias=None):
     return F.linear(x, weight) + bias.to(weight.dtype)
 
 
+def _mm_f32(a, b):
+    """a @ b in fp32 from two matrices of one low-precision dtype: on the
+    card one tensor-core GEMM with an fp32 output, on the CPU in fp32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _PartialProduct(torch.autograd.Function):
+    """x @ w^T in fp32 from x and w of w's low-precision dtype: a row
+    layer's partial product. Its one consumer rounds it to w's dtype (after
+    the sum over ranks), so the cotangent that comes back holds values of
+    w's dtype and the backward's products take it in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1]).to(w.dtype)
+        gx = _mm_f32(g, w).to(x.dtype).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = _mm_f32(g.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def row_dense(x, weight, bias, split):
     """A row layer: x (whole, or this rank's slice of the inputs) against
     this rank's input columns of `weight`; the fp32 partial products summed
@@ -60,7 +88,9 @@ def row_dense(x, weight, bias, split):
     axis = split.axis
     if x.shape[-1] == weight.shape[1] * axis.size:
         x = scatter_to(x, axis, -1)
-    y = reduce_from(F.linear(x.to(weight.dtype).float(), weight.float()), axis).to(weight.dtype)
+    x = x.to(weight.dtype)
+    part = F.linear(x, weight) if weight.dtype == torch.float32 else _PartialProduct.apply(x, weight)
+    y = reduce_from(part, axis).to(weight.dtype)
     return y if bias is None else y + bias.to(weight.dtype)
 
 

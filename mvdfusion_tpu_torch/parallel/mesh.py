@@ -49,8 +49,8 @@ class Mesh:
     rank: int
     world: int
     device: torch.device
-    coords: Optional[tuple] = (0, 0, 0)
-    axes: dict = dataclasses.field(default_factory=lambda: dict(dp=ONE, sp=ONE, tp=ONE, grad=ONE))
+    coords: Optional[tuple]
+    axes: dict
 
 
 def _env_int(name: str) -> int:
@@ -108,8 +108,7 @@ def _axis_ranks(dp: int, sp: int, tp: int) -> dict:
     )
 
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, device=None, world: Optional[int] = None,
-              rank: Optional[int] = None) -> Mesh:
+def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, device=None, world: Optional[int] = None) -> Mesh:
     """The (dp, sp, tp) layout over `world` ranks (default: the process
     group's size, 1 without one): dp defaults to world // (tp * sp) and
     dp * tp * sp may not exceed world, as in the JAX make_mesh. Under a
@@ -122,8 +121,7 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, device=None, w
         dp = world // (tp * sp)
     if dp < 1 or dp * tp * sp > world:
         raise ValueError(f"mesh {dp}x{sp}x{tp} needs more than the {world} available ranks")
-    if rank is None:
-        rank = dist.get_rank() if dist.is_initialized() else 0
+    rank = dist.get_rank() if dist.is_initialized() else 0
     coords = mesh_coords(rank, dp, sp, tp)
     axes = dict(dp=ONE, sp=ONE, tp=ONE, grad=ONE)
     if dist.is_initialized():

@@ -658,10 +658,11 @@ def test_demo_cli_writes_artifacts_and_metrics(scene_dirs, tmp_path):
     # make_mesh lays out sp; a layout larger than its ranks raises rather than degrades
     from mvdfusion_tpu_torch.cli import train as train_cli
     from mvdfusion_tpu_torch.parallel import make_mesh
+    from mvdfusion_tpu_torch.parallel.mesh import mesh_coords
 
     assert train_cli.parse_args(["-c", str(cfgp), "--tp", "2"]).tp == 2
-    mesh = make_mesh(sp=2, world=2, rank=1)
-    assert (mesh.dp, mesh.sp, mesh.tp, mesh.coords) == (1, 2, 1, (0, 1, 0))
+    mesh = make_mesh(sp=2, world=2)
+    assert (mesh.dp, mesh.sp, mesh.tp) == (1, 2, 1) and mesh_coords(1, mesh.dp, mesh.sp, mesh.tp) == (0, 1, 0)
     with pytest.raises(ValueError, match="needs more than"):
         make_mesh(sp=2, tp=2, world=2)
     # an existing ckpt_path is restored, not skipped: a file that is not a

@@ -48,7 +48,7 @@ from mvdfusion_tpu.parallel.mesh import make_mesh as jmake_mesh
 from mvdfusion_tpu_torch.core.checkpoint import restore_checkpoint
 from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
 from mvdfusion_tpu_torch.parallel import make_mesh
-from mvdfusion_tpu_torch.parallel.mesh import free_port
+from mvdfusion_tpu_torch.parallel.mesh import free_port, mesh_coords
 from mvdfusion_tpu_torch.pipeline import trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -122,11 +122,13 @@ def test_make_mesh_tp_and_sp_match_jax(n, dp, tp, sp):
     ref = jmake_mesh(dp=dp, tp=tp, sp=sp, devices=devices)
     shape = dict(ref.shape)
     grid = np.vectorize(lambda d: d.id)(ref.devices).reshape(shape["dp"], shape.get("sp", 1), shape["tp"])
+    ours = make_mesh(dp=dp, tp=tp, sp=sp, world=n)
+    assert (ours.dp, ours.sp, ours.tp, ours.world, ours.rank) == (shape["dp"], shape.get("sp", 1), shape["tp"], n, 0)
     for r in range(n):
-        ours = make_mesh(dp=dp, tp=tp, sp=sp, world=n, rank=r)
-        assert (ours.dp, ours.sp, ours.tp, ours.world, ours.rank) == (shape["dp"], shape.get("sp", 1), shape["tp"], n, r)
         at = np.argwhere(grid == devices[r].id)
-        assert ours.coords == (tuple(int(i) for i in at[0]) if len(at) else None), (r, ours.coords, at)
+        coords = mesh_coords(r, ours.dp, ours.sp, ours.tp)
+        assert coords == (tuple(int(i) for i in at[0]) if len(at) else None), (r, coords, at)
+    assert ours.coords == mesh_coords(0, ours.dp, ours.sp, ours.tp)
 
 
 @pytest.mark.parametrize("n,dp,tp,sp", [(4, 2, 2, 2), (8, 2, 4, 2), (8, 3, 3, 1)])

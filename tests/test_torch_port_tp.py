@@ -114,6 +114,28 @@ def test_row_parallel_bf16_linear_within_one_ulp(tp2):
         assert not bool(((doubled - want).abs() <= ulp(want)).all())
 
 
+@pytest.mark.parametrize("shape", [(6, 24), (2, 5, 40)])
+def test_row_partial_product_matches_fp32_autograd(shape):
+    """A bf16 row layer's partial product (nn/layers.py::_PartialProduct)
+    and its backward against autograd through the fp32 upcasts: the same
+    fp32 product, and the same gradients rounded to bf16 once."""
+    from mvdfusion_tpu_torch.nn.layers import _PartialProduct
+
+    g = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(*shape, generator=g).bfloat16().requires_grad_()
+    w = torch.randn(16, shape[-1], generator=g).bfloat16().requires_grad_()
+    cot = torch.randn(*shape[:-1], 16, generator=g).bfloat16().float()  # the cotangent of a bf16 rounding
+    ref = torch.nn.functional.linear(x.float(), w.float())
+    ref_gx, ref_gw = torch.autograd.grad(ref, (x, w), cot)
+    got = _PartialProduct.apply(x, w)
+    gx, gw = torch.autograd.grad(got, (x, w), cot)
+    assert got.dtype == torch.float32 and torch.allclose(got, ref, rtol=1e-6, atol=1e-6)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    for a, b in ((gx, ref_gx), (gw, ref_gw)):
+        ulp = torch.finfo(torch.bfloat16).eps * b.float().abs()
+        assert bool(((a.float() - b.float()).abs() <= ulp).all())
+
+
 @pytest.fixture(scope="module")
 def jax_pair(inputs):
     model = _tiny()

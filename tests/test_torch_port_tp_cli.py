@@ -7,7 +7,10 @@ config:
     where 3 unbroken tp = 1 steps end, within the gap the gradients
     explain through AdamW's first step.
 (b) A CPU rehearsal of chip_smoke.py's tp phase (the request at tp = 2, a
-    train step at tp = 2 and at sp = 2, each against rank 0 alone).
+    train step at tp = 2 and at sp = 2, each against rank 0 alone), and its
+    dp_step serving several steps on one model: in bf16 (init_train_state
+    casts the parameters to their compute dtypes) each step starts from
+    the same weights and masters, so repeated steps are bit-equal.
 """
 
 import os
@@ -15,6 +18,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from mvdfusion_tpu_torch.core.checkpoint import restore_checkpoint
@@ -69,3 +73,20 @@ def test_chip_smoke_tp_rehearsal_on_cpu():
     res = chip_smoke.run_tp("cpu", device="cpu", tiny=True)
     assert res["backend"] == "gloo" and res["world"] == 2 and all(res["ranks_agree"])
     assert res["tp"]["copies_are_masters"] and res["sp"]["copies_are_masters"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_smoke_dp_step_repeats_on_one_model(dtype):
+    import dataclasses
+
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from mvdfusion_tpu_torch.core.config import build_model_config, load_yaml
+
+    mcfg = dataclasses.replace(build_model_config(load_yaml(str(chip_smoke.TRAIN_CONFIG))).tiny(), dtype=dtype)
+    dev = torch.device("cpu")
+    model = ViewFusion(mcfg, device=dev)
+    first = chip_smoke.dp_step(dev, model, range(1), reduce=False)
+    again = chip_smoke.dp_step(dev, model, range(1), reduce=False)
+    assert first["loss"] == again["loss"] and first["prints"] == again["prints"]
