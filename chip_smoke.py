@@ -2,7 +2,7 @@
 """Smoke test of mvdfusion_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--steps N] [--eval-steps N] [--forms-steps N] [--train-steps N] [--profile STEPS]
-                          [--learn]
+                          [--learn] [--loader]
     python3 chip_smoke.py --profile-only STEPS
     python3 chip_smoke.py --k1-sweep
     python3 chip_smoke.py --k5-sweep
@@ -126,7 +126,18 @@ Phases, each printed with elapsed seconds as it starts and ends:
               that batch against their plain versions); logs s/scene, kernel
               launches a scene and peak memory of both (with --profile,
               the profiler's launches a step of STEPS steps of each)
-  10. train   the train path (run_train): configs/train.yaml's model in
+  10. loader  the native image loader (run_loader), where the host has the
+              libjpeg, libpng and zlib headers (the device phase's probe
+              logs g++, the headers and ldconfig's libraries), else only
+              with --loader: builds native/loader.cc with g++ (a failed
+              build fails the phase), writes a 2-scene Objaverse tree of
+              the 16 fix_elevation views at 512^2 and reads it at 256^2
+              through the native route and through PIL in turns, logging s
+              a scene of each and the build's seconds; holds native
+              against PIL at the stored size (pngs within 1e-6 x max(1,
+              |x|), jpgs within 1/255 + 1e-6: the system libjpeg and
+              Pillow's may round the inverse DCT apart)
+  11. train   the train path (run_train): configs/train.yaml's model in
               bf16 with random weights, its trainer section (5 targets,
               4 scenes a call, grad_accum_step 4, finetune_unet) and its
               own `objaverse` dataset target with only the root moved to
@@ -138,7 +149,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               resume; checks the frozen parameters bit-equal, K1 and K2
               launched inside the step, finite losses and gradients;
               prints s a call and an optimizer step, scenes/s, peak memory
-              and the loader's s a scene and a batch against s a call;
+              and the loader's route and s a scene and a batch against s a call;
               then one micro-step under "model"
               against "never" (TRAIN_MODE_* tolerances), one full-width
               apply_model_cfg with the kernels against MVDF_DISABLE_PALLAS=1
@@ -147,7 +158,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               flagship shape in bf16 against the plain version's autograd
               (bit-equal, or 1 bf16 ulp where its backward adds with
               atomics); with --profile, STEPS more calls by kernel
-  11. dp      data parallelism (run_dp): one spawn of 2 ranks sharing the
+  12. dp      data parallelism (run_dp): one spawn of 2 ranks sharing the
               card over gloo (run_ranks, par_rank) serves this phase and
               the next, one configs/train.yaml model a rank (bf16,
               grad_accum_step 1, its weights drawn anew for each step).
@@ -160,7 +171,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               size 1 (NCCL: its init and an all-reduce on the card); logs
               each all-reduce's bytes and seconds, the step's seconds,
               peak memory a rank and rank 0's parts' seconds
-  12. tp      tensor and view parallelism (run_tp): K4 and K4b at an sp
+  13. tp      tensor and view parallelism (run_tp): K4 and K4b at an sp
               rank's query count against their plain versions; from the
               dp phase's spawn: (a) the flagship model split at tp = 2
               answers a request on fixed noise (prepare, the sampler's
@@ -178,7 +189,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               logs every reading before it holds one, each part's
               launches and gloo's all_gather on CUDA tensors (the port
               takes it; the phase fails without)
-  13. learn   with --learn only (about 110 s, most of it the host's
+  14. learn   with --learn only (about 110 s, most of it the host's
               launches of 260 train steps): tests/test_learning.py's
               proof through tools/overfit_synthetic.py (run_learn): the
               tiny model in fp32, 2 synthetic scenes, 120 VAE steps, 260
@@ -187,7 +198,7 @@ Phases, each printed with elapsed seconds as it starts and ends:
               and K4 in the trained evaluation, and one scene's trained
               evaluation against the kernel-off switch on the same noise
               (LEARN_PLAIN_RTOL)
-  14. stages  K4 and K4b traced by kernel name (crossview_stages): device
+  15. stages  K4 and K4b traced by kernel name (crossview_stages): device
               ms by stage and kernels a call (21 each, no copy from the
               host), and K1 (one kernel a call, read from a CUDA graph of
               its calls); last, since a profiler session slows the
@@ -2230,6 +2241,99 @@ def profile_scene_steps(model, scenes, steps: int) -> None:
 
 
 # ---------------------------------------------------------------- phase 10
+LOADER_HEADERS = ("jpeglib.h", "png.h", "zlib.h")  # what native/loader.cc includes, under /usr/include
+LOADER_STORED, LOADER_SIZE = 512, 256  # the renders' size and configs/train.yaml's image_size
+# native against PIL at the stored size (no resize): pngs within a float32
+# rounding of x / 255 (the loader multiplies by 1/255, numpy divides), jpgs
+# within one level: the system libjpeg and Pillow's bundled one may round
+# the inverse DCT apart
+LOADER_PNG_ATOL = 1e-6
+LOADER_JPG_ATOL = 1 / 255 + 1e-6
+
+
+def loader_probe() -> list:
+    """Log the host's g++, the loader's headers under /usr/include and
+    ldconfig's libjpeg, libpng and libz; return the missing headers."""
+    gxx = shutil.which("g++")
+    ver = subprocess.run([gxx, "--version"], capture_output=True, text=True).stdout.splitlines()[0] if gxx else "none"
+    missing = [h for h in LOADER_HEADERS if not (Path("/usr/include") / h).exists()]
+    ld = subprocess.run(["bash", "-c", "ldconfig -p | grep -E 'libjpeg|libpng|libz\\.'"], capture_output=True,
+                        text=True).stdout.split("\n")
+    log(f"  loader probe: {ver}; /usr/include/{{jpeglib,png,zlib}}.h: "
+        + ", ".join(f"{h} {'no' if h in missing else 'yes'}" for h in LOADER_HEADERS))
+    log("  loader probe: ldconfig -p: " + ("; ".join(x.strip() for x in ld if x.strip()) or "no libjpeg, libpng, libz"))
+    return missing
+
+
+@contextlib.contextmanager
+def pil_route():
+    """The port's datasets on their PIL route (the native loader switched off)."""
+    from mvdfusion_tpu_torch.data import datasets
+
+    native_batch = datasets._native_batch
+    datasets._native_batch = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        datasets._native_batch = native_batch
+
+
+def run_loader(card: str, stored: int = LOADER_STORED, size: int = LOADER_SIZE) -> dict:
+    """The native image loader (mvdfusion_tpu_torch/native/, on the host):
+    builds loader.cc (a failed build fails the phase), writes a
+    TRAIN_SCENES-scene Objaverse tree of the 16 fix_elevation views at
+    stored^2 (rgb jpg, 16-bit depth png, mask jpg), reads every scene at
+    size^2 through the native route and through PIL in turn, each timed, and
+    holds native against PIL at the stored size (LOADER_*_ATOL). Returns
+    the build's seconds and the s a scene of each route."""
+    import tempfile
+
+    import numpy as np
+
+    from mvdfusion_tpu_torch import native
+    from mvdfusion_tpu_torch.data.datasets import Objaverse
+    from mvdfusion_tpu_torch.data.rigs import OBJAVERSE_TRAIN_RING
+
+    info = native.build(force=True)
+    check(native.available(), f"the native loader built but does not load: {native.reason()}")
+    log(f"  g++ built {info['path']} in {info['seconds']:.2f}s")
+    with tempfile.TemporaryDirectory() as tmpd:
+        root = Path(tmpd)
+        t0 = time.perf_counter()
+        write_objaverse(root, TRAIN_SCENES, stored, SEED, subset="tiny", views=[int(i) for i in OBJAVERSE_TRAIN_RING])
+        log(f"  wrote {TRAIN_SCENES} scenes of {len(OBJAVERSE_TRAIN_RING)} views at {stored}^2 (jpg, 16-bit png, "
+            f"jpg mask) in {time.perf_counter() - t0:.2f}s")
+        kw = dict(subset="tiny", fix_elevation=True, load_depth=True, load_mask=True)
+        times = {}
+        for route in ("native", "pil", "native", "pil"):  # in turns: the file cache is warm for both
+            ds = Objaverse(str(root), image_size=size, **kw)
+            with pil_route() if route == "pil" else contextlib.nullcontext():
+                for i in range(len(ds)):
+                    t0 = time.perf_counter()
+                    scene = ds[i]
+                    times.setdefault(route, []).append(time.perf_counter() - t0)
+                    check(scene["images"].shape == (16, size, size, 3) and np.isfinite(scene["depths"]).all(),
+                          f"{route}: scene {i} {scene['images'].shape}")
+        per = {r: sorted(v)[len(v) // 2] for r, v in times.items()}
+        log(f"  read at {size}^2 (16 rgb jpgs, 16 depth pngs, 16 mask jpgs a scene): native "
+            + ", ".join(f"{t:.4f}" for t in times["native"]) + " s a scene, PIL "
+            + ", ".join(f"{t:.4f}" for t in times["pil"]) + f" s a scene; medians {per['native']:.4f} and "
+            f"{per['pil']:.4f} ({per['pil'] / per['native']:.2f}x), on the host of {card}")
+        ds = Objaverse(str(root), image_size=stored, **kw)
+        a = ds[0]
+        with pil_route():
+            b = ds[0]
+        gaps = {k: float(np.abs(a[k] - b[k]).max()) for k in ("images", "depths", "masks")}
+        log(f"  native against PIL at {stored}^2: max|diff| " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+            + f" (jpgs within {LOADER_JPG_ATOL:.3e}, pngs within {LOADER_PNG_ATOL:g} x max(1, |x|))")
+        check(gaps["images"] <= LOADER_JPG_ATOL, f"rgb jpgs: native against PIL {gaps['images']:.3e}")
+        check(bool((np.abs(a["depths"] - b["depths"]) <= LOADER_PNG_ATOL * np.maximum(1, np.abs(b["depths"]))).all()),
+              f"depth pngs: native against PIL {gaps['depths']:.3e}")
+        check(gaps["masks"] == 0.0, "the masks take PIL on both routes")
+    return dict(build_s=info["seconds"], native_s=per["native"], pil_s=per["pil"])
+
+
+# ---------------------------------------------------------------- phase 11
 TRAIN_CONFIG = HERE / "configs" / "train.yaml"
 TRAIN_SCENES = 2  # Objaverse-layout scenes the phase writes: no render ships
 # the train phase's tolerances (PERF.md): one micro-step under
@@ -2495,6 +2599,7 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
 
     import torch
 
+    from mvdfusion_tpu_torch import native
     from mvdfusion_tpu_torch.cli import train as cli
     from mvdfusion_tpu_torch.core.config import build_dataset, build_train_config, load_yaml
     from mvdfusion_tpu_torch.data.datasets import Objaverse
@@ -2571,7 +2676,8 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
             # the loader runs in the prefetch thread beside the steps: its seconds a
             # batch (spc scenes) against the seconds a call say what share it could take
             per_batch = sorted(loads)[len(loads) // 2] * spc
-            log(f"  loader (data/datasets.py::Objaverse, {size}^2 jpgs through PIL): {len(loads)} scenes read, "
+            route = "the native loader (native/loader.cc)" if native.available() else "PIL"
+            log(f"  loader (data/datasets.py::Objaverse, {size}^2 jpgs through {route}): {len(loads)} scenes read, "
                 f"{', '.join(f'{t:.3f}' for t in loads)} s a scene; {per_batch:.3f} s a batch of {spc} scenes (the "
                 f"median scene) against {steady:.3f} s a call after the first ({per_batch / steady:.1%} of a call)")
             log(f"  launches in the run: {counts}")
@@ -2615,7 +2721,7 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
     return dict(counts=counts, gap=gap, numerics=res, loader_s=loads)
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 DP_RANKS = 2  # ranks sharing the card over gloo (NCCL refuses two ranks on one device)
 DP_VIEWS = 16  # the GSO rig's views; 1 input and configs/train.yaml's 5 targets drawn from them
 # two ranks, one scene each, against one rank with both, on the same draws.
@@ -2869,7 +2975,7 @@ def run_dp(card: str, device: str = "cuda", tiny: bool = False, res=None) -> dic
     return res
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
 TP_RANKS = 2  # ranks sharing the card over gloo
 TP_STEPS = 2  # DDIM steps of the tp = 2 request
 # Rules, derived before the first run on the card. The split model computes
@@ -3303,7 +3409,7 @@ def run_tp(card: str, device: str = "cuda", tiny: bool = False, res=None) -> dic
     return res
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 # the learning proof at tests/test_learning.py's sizes: the tiny model in fp32,
 # 2 scenes of the mixed family with textures, 120 VAE steps, 260 diffusion
 # steps, 8-step DDIM on views 3 and 11
@@ -3618,6 +3724,8 @@ def main() -> int:
     ap.add_argument("--learn", action="store_true",
                     help="after the train phase, the learning proof at tests/test_learning.py's sizes (run_learn, "
                          "~110 s)")
+    ap.add_argument("--loader", action="store_true",
+                    help="run the loader phase even where the host lacks the libjpeg, libpng or zlib headers")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the checks, trace STEPS sampling steps with torch.profiler, on the default "
                          "route (slice), on the evaluation scene (eval) and with the switched forms on (forms), "
@@ -3659,6 +3767,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         log(f"  {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {card}")
+        missing_headers = loader_probe()
 
     from mvdfusion_tpu_torch.ops import _lib
 
@@ -3746,6 +3855,12 @@ def main() -> int:
 
     with Phase("scenes"):
         scenes_counts = run_scenes(args.eval_steps, card, model=model, profile=args.profile)["counts"]
+
+    if missing_headers and not args.loader:
+        log(f"phase loader: skipped, the host lacks /usr/include/{', '.join(missing_headers)} (--loader runs it)")
+    else:
+        with Phase("loader"):
+            run_loader(card)
 
     del model
     torch.cuda.empty_cache()

@@ -5,16 +5,28 @@ Host-side numpy loaders. Each scene is a dict of float32 numpy arrays in NHWC:
     {index, idx, images (S, H, W, 3), R (S, 3, 3), T (S, 3), f (S, 2),
      c (S, 2), azimuth (S,), elevation (S,) [, depths (S, H, W, 1),
      masks (S, H, W, 1)]}
-Images decode and resize through PIL, imported where it is used.
+
+Images take the JAX package's route: the native loader (native/loader.cc:
+decode, area-average downscale or half-pixel bilinear upscale, the alpha <
+0.5 white composite after the resize) for GSO's RGBA pngs and Objaverse's
+rgb jpgs and 16-bit depth pngs where the library builds, else PIL (decode,
+then PIL's bilinear resize, then the composite); Objaverse's masks and the
+Wild images always take PIL, imported where it is used. Two departures from
+the JAX package, which swallows every exception of its native route:
+where the library cannot be built the reason is printed on stderr once and
+the reads take PIL; a file the built decoder refuses raises
+native.DecodeError naming it, and does not fall back to PIL.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 
+from mvdfusion_tpu_torch import native
 from mvdfusion_tpu_torch.data.rigs import (
     AZIMUTHS_16,
     AZIMUTHS_B64,
@@ -23,6 +35,22 @@ from mvdfusion_tpu_torch.data.rigs import (
     OBJAVERSE_TRAIN_RING,
     fixed_rig,
 )
+
+
+_told = False  # the native loader's absence is printed once a process
+
+
+def _native_batch(paths, size: int, white_composite: bool, channels: int = 3):
+    """(N, size, size, channels) through the native loader, or None where
+    the library cannot be built (the caller takes PIL)."""
+    global _told
+    if not native.available():
+        if not _told:
+            _told = True
+            print(f"mvdfusion_tpu_torch.data: the native image loader is unavailable, images decode through PIL: "
+                  f"{native.reason()}", file=sys.stderr)
+        return None
+    return native.decode_batch(paths, size, size, channels, white_composite=white_composite, n_threads=4)
 
 
 def _imread(path: str) -> np.ndarray:
@@ -101,8 +129,10 @@ class GSO:
     def __getitem__(self, index: int) -> dict:
         scene_dir = os.path.join(self.root, self.scenes[index])
         paths = [os.path.join(scene_dir, f"{i:03d}.png") for i in range(self.n_views)]
-        imgs = [_composite_white(_resize(_imread(p), self.image_size)) for p in paths]
-        return _scene(index, self.scenes[index], np.stack(imgs), self.rig)
+        imgs = _native_batch(paths, self.image_size, white_composite=True)
+        if imgs is None:
+            imgs = np.stack([_composite_white(_resize(_imread(p), self.image_size)) for p in paths])
+        return _scene(index, self.scenes[index], imgs, self.rig)
 
 
 class Wild:
@@ -169,9 +199,14 @@ class Objaverse:
     def __getitem__(self, index: int) -> dict:
         scene_dir = os.path.join(self.root, self.subset, self.scenes[index], "views")
         idxs = OBJAVERSE_TRAIN_RING if self.fix_elevation else np.arange(64)
-        read = lambda suffix, chans: np.stack([
-            _resize(_imread(os.path.join(scene_dir, f"{i:03d}_{suffix}")), self.image_size)[..., :chans] for i in idxs
-        ])
+
+        def read(suffix, chans, native_route=True):
+            paths = [os.path.join(scene_dir, f"{i:03d}_{suffix}") for i in idxs]
+            out = _native_batch(paths, self.image_size, False, chans) if native_route else None
+            if out is None:
+                out = np.stack([_resize(_imread(p), self.image_size)[..., :chans] for p in paths])
+            return out
+
         out = {
             "index": index,
             "idx": self.scenes[index],
@@ -186,5 +221,5 @@ class Objaverse:
         if self.load_depth:
             out["depths"] = read("depth.png", 1)
         if self.load_mask:
-            out["masks"] = read("mask.jpg", 1)
+            out["masks"] = read("mask.jpg", 1, native_route=False)  # PIL, as in the JAX package
         return out

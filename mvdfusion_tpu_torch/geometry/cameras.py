@@ -8,7 +8,7 @@ mvdfusion_tpu/geometry/cameras.py).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +43,11 @@ def camera_slice(cams: Cameras, indices) -> Cameras:
     if isinstance(indices, (list, tuple)):
         indices = torch.as_tensor(indices, device=cams.R.device)
     return Cameras(*(a[indices] for a in cams))
+
+
+def concat_cameras(camera_list: Sequence[Cameras]) -> Cameras:
+    """One batch of the batches in `camera_list`, in order."""
+    return Cameras(*(torch.cat(parts) for parts in zip(*camera_list)))
 
 
 def camera_center(cams: Cameras) -> torch.Tensor:
@@ -85,6 +90,15 @@ def relative_cameras(cams: Cameras, query_idx) -> Cameras:
         Rq = Rq[0]
     R_rel = torch.einsum("ji,bjk->bik", Rq, cams.R)
     return Cameras(R_rel, cams.T, cams.focal_length, cams.principal_point)
+
+
+def normalize_cameras(cams: Cameras, distance: float = 3.5) -> Cameras:
+    """T rescaled so that the mean distance of the camera centres from the
+    origin is `distance` (look_at_optical_center=False). A new Cameras, not
+    `_replace`: the NamedTuple's __len__ counts cameras, which _replace's
+    field check would read."""
+    scale = distance / torch.linalg.norm(camera_center(cams), dim=1).mean()
+    return Cameras(cams.R, cams.T * scale, cams.focal_length, cams.principal_point)
 
 
 # look_at rigs (host-side numpy, PyTorch3D look_at_view_transform semantics)

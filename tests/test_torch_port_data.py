@@ -13,9 +13,13 @@ consistency property are tests/test_synthetic_data.py's, here on the port's
 own class, cameras and grid_sample.
 
 Objaverse: a synthesized tree (64 renders a scene: jpg RGB, 16-bit depth
-png, jpg mask) through both loaders with depth and mask; bit-equal to the
-JAX loader's PIL path, and within 1e-6 of its native decoder where that is
-built (it divides by 255 in another precision).
+png, jpg mask) through both loaders with depth and mask; bit-equal on the
+PIL route (both native loaders switched off), and on the native route (the
+C++ loader on both sides, the masks through PIL) at the stored size and
+within 1e-6 resized, with GSO's RGBA pngs under the white composite too.
+The route rules: where the native library cannot be built, the port reads
+through PIL (equal to the JAX package's PIL route) and says why once on
+stderr; a file the built decoder refuses raises with its path.
 """
 
 import importlib.util
@@ -31,10 +35,13 @@ import pytest
 import torch
 
 import mvdfusion_tpu.data.datasets as jdatasets
+import mvdfusion_tpu.native as jnative
+import mvdfusion_tpu_torch.data.datasets as tdatasets
 from mvdfusion_tpu.core import config as jconfig
 from mvdfusion_tpu.data.synthetic import SyntheticScenes as JScenes
 from mvdfusion_tpu_torch.core import config as tconfig
-from mvdfusion_tpu_torch.data.datasets import Objaverse
+from mvdfusion_tpu_torch import native
+from mvdfusion_tpu_torch.data.datasets import GSO, Objaverse
 from mvdfusion_tpu_torch.data.synthetic import DEPTH_SCALE, DEPTH_SHIFT, SyntheticScenes, metric_to_stored
 
 REPO = Path(__file__).resolve().parents[1]
@@ -158,10 +165,11 @@ def _equal_scenes(a, b, atol=0.0):
 @pytest.mark.parametrize("size,fix,depth,mask", [(32, True, True, True), (24, True, True, False),
                                                  (48, False, False, True)])
 def test_objaverse_matches_jax(objaverse_tree, monkeypatch, size, fix, depth, mask):
-    """The port's loader against the JAX loader's PIL path (its native
-    decoder switched off) at the stored size and resized down and up, with
-    and without fix_elevation, depth and mask: bit-equal."""
+    """The port's loader against the JAX loader on the PIL route (both
+    native decoders switched off) at the stored size and resized down and
+    up, with and without fix_elevation, depth and mask: bit-equal."""
     monkeypatch.setattr(jdatasets, "_native_batch", lambda *a, **k: None)
+    monkeypatch.setattr(tdatasets, "_native_batch", lambda *a, **k: None)
     kw = dict(subset="tiny", stage="train", image_size=size, fix_elevation=fix, load_depth=depth, load_mask=mask)
     ours, ref = Objaverse(str(objaverse_tree), **kw), jdatasets.Objaverse(str(objaverse_tree), **kw)
     assert len(ours) == len(ref) == 2
@@ -176,10 +184,73 @@ def test_objaverse_matches_jax(objaverse_tree, monkeypatch, size, fix, depth, ma
 
 def test_objaverse_matches_jax_native_decoder(objaverse_tree):
     """Against the JAX loader as it runs here (its C++ decoder where built)
-    at the stored size: within 1e-6 (the decoder's /255 rounds apart)."""
+    at the stored size, the port on its own route (its copy of that
+    decoder): bit-equal."""
     kw = dict(subset="tiny", image_size=32, load_depth=True, load_mask=True)
-    _equal_scenes(Objaverse(str(objaverse_tree), **kw)[0], jdatasets.Objaverse(str(objaverse_tree), **kw)[0],
-                  atol=1e-6)
+    _equal_scenes(Objaverse(str(objaverse_tree), **kw)[0], jdatasets.Objaverse(str(objaverse_tree), **kw)[0])
+
+
+@pytest.fixture(scope="module")
+def gso_tree(tmp_path_factory):
+    """Two GSO scenes of 16 random RGBA pngs at 32^2, alpha random (about
+    half the pixels composite to white)."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("gso")
+    rng = np.random.default_rng(4)
+    for s in range(2):
+        (root / f"scene_{s}").mkdir()
+        for i in range(16):
+            rgba = (rng.uniform(size=(32, 32, 4)) * 255).astype(np.uint8)
+            Image.fromarray(rgba, "RGBA").save(root / f"scene_{s}" / f"{i:03d}.png")
+    (root / "test.json").write_text('["scene_0", "scene_1"]')
+    return root
+
+
+@pytest.mark.parametrize("size", [24, 48])
+def test_native_route_matches_jax_resized(objaverse_tree, gso_tree, size):
+    """Objaverse (fix_elevation, depth and mask) and GSO (the white
+    composite) read off their stored 32^2 through both packages as each runs
+    here, the native loader on both: within 1e-6 (the same loader.cc)."""
+    if not (jnative.available() and native.available()):
+        pytest.skip(f"a native loader is not built on this box: {native.reason()}")
+    kw = dict(subset="tiny", stage="train", image_size=size, fix_elevation=True, load_depth=True, load_mask=True)
+    a = Objaverse(str(objaverse_tree), **kw)[1]
+    assert a["images"].shape == (16, size, size, 3) and a["depths"].max() > 1.0
+    _equal_scenes(a, jdatasets.Objaverse(str(objaverse_tree), **kw)[1], atol=1e-6)
+    a = GSO(str(gso_tree), subset="test", image_size=size)[0]
+    assert a["images"].shape == (16, size, size, 3) and (a["images"] == 1.0).all(axis=-1).mean() > 0.2
+    _equal_scenes(a, jdatasets.GSO(str(gso_tree), subset="test", image_size=size)[0], atol=1e-6)
+
+
+def test_failed_build_takes_pil(objaverse_tree, gso_tree, monkeypatch, capsys):
+    """With the native build made to fail, the port's Objaverse and GSO read
+    through PIL, equal to the JAX package's PIL route, and the reason is
+    printed on stderr once."""
+    monkeypatch.setattr(native, "LIB_PATH", objaverse_tree / "absent" / "libmvdf_loader.so")
+    monkeypatch.setattr(native, "CXX", str(objaverse_tree / "no-such-g++"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_why", None)
+    monkeypatch.setattr(tdatasets, "_told", False)
+    monkeypatch.setattr(jdatasets, "_native_batch", lambda *a, **k: None)
+    kw = dict(subset="tiny", stage="train", image_size=24, fix_elevation=True, load_depth=True, load_mask=True)
+    _equal_scenes(Objaverse(str(objaverse_tree), **kw)[0], jdatasets.Objaverse(str(objaverse_tree), **kw)[0])
+    _equal_scenes(GSO(str(gso_tree), subset="test", image_size=48)[1],
+                  jdatasets.GSO(str(gso_tree), subset="test", image_size=48)[1])
+    err = capsys.readouterr().err
+    assert err.count("the native image loader is unavailable") == 1 and "no-such-g++" in err, err
+
+
+def test_refused_file_raises_with_its_path(tmp_path):
+    """With the library built, a truncated jpg in an Objaverse scene raises
+    native.DecodeError naming it (no quiet fall back to PIL)."""
+    if not native.available():
+        pytest.skip(f"the native loader is not built on this box: {native.reason()}")
+    CS.write_objaverse(tmp_path, 1, 16, seed=5, subset="tiny", views=range(40, 56))
+    bad = tmp_path / "tiny" / "uid_0000" / "views" / "047_rgb.jpg"
+    bad.write_bytes(bad.read_bytes()[:40])
+    with pytest.raises(native.DecodeError, match=str(bad)):
+        Objaverse(str(tmp_path), subset="tiny", image_size=16)[0]
 
 
 def _train_yaml(tmp_path, root, size, exp=None):
@@ -202,6 +273,7 @@ def test_build_dataset_on_train_yaml(tmp_path, objaverse_tree, monkeypatch):
     import yaml
 
     monkeypatch.setattr(jdatasets, "_native_batch", lambda *a, **k: None)
+    monkeypatch.setattr(tdatasets, "_native_batch", lambda *a, **k: None)
     raw = yaml.safe_load((REPO / "configs" / "train.yaml").read_text())
     assert raw["dataset"]["target"] == "objaverse"
     subset = raw["dataset"]["params"]["subset"]
@@ -237,3 +309,13 @@ def test_train_cli_on_objaverse(tmp_path):
     assert len(losses) == 2 and all(math.isfinite(v) for v in losses), out.stdout
     assert (exp / "ckpt" / "latest").read_text() == "step_00000002"
     assert (exp / "ckpt" / "step_00000002").exists()
+
+
+def test_chip_smoke_loader_rehearsal_on_cpu():
+    """chip_smoke.py's loader phase at 64^2 renders read at 32^2: the probe
+    finds the headers here, the build, both routes timed, native against PIL
+    at the stored size within the phase's tolerances."""
+    if CS.loader_probe():
+        pytest.skip("the host lacks the loader's headers")
+    res = CS.run_loader("cpu", stored=64, size=32)
+    assert res["native_s"] > 0 and res["pil_s"] > 0 and res["build_s"] > 0

@@ -340,9 +340,10 @@ def test_rigs_match():
 @pytest.mark.parametrize("size", [64, 80])
 def test_gso_and_wild_loaders_match(scene_dirs, monkeypatch, size):
     """(d) GSO and Wild scenes, with (64) and without (80) a resize, decoded
-    through the same imageio/PIL path on both sides (the JAX package's C++
-    decoder switched off): images equal to 1e-6, rigs to 1e-6."""
+    through the same imageio/PIL path on both sides (both packages' C++
+    decoders switched off): images equal to 1e-6, rigs to 1e-6."""
     monkeypatch.setattr(jdata, "_native_batch", lambda *a, **k: None)
+    monkeypatch.setattr(tdata, "_native_batch", lambda *a, **k: None)
     gso, wild = scene_dirs
     for tcls, jcls, root in ((tdata.GSO, jdata.GSO, gso), (tdata.Wild, jdata.Wild, wild)):
         tds, jds = tcls(root, subset="test", image_size=size), jcls(root, subset="test", image_size=size)

@@ -6,12 +6,23 @@ analytic reprojection through the GridAttn chain (cameras -> pixel_rays ->
 rays_to_points -> transform_points_ndc -> negated-xy grid_sample) with every
 single-sign mutation of the gather convention failing. Same cases and
 thresholds as the JAX package's tests; no JAX on either side. The synthetic
-dataset's stored-depth convention rests on these."""
+dataset's stored-depth convention rests on these. Last, concat_cameras and
+normalize_cameras against the JAX package's, within 1e-6."""
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from mvdfusion_tpu_torch.geometry.cameras import camera_slice, look_at_view_transform, make_cameras, transform_points_ndc
+from mvdfusion_tpu.geometry import cameras as jcameras
+from mvdfusion_tpu_torch.geometry.cameras import (
+    camera_slice,
+    concat_cameras,
+    look_at_view_transform,
+    make_cameras,
+    normalize_cameras,
+    transform_points_ndc,
+)
 from mvdfusion_tpu_torch.geometry.gridsample import bilinear_gather, grid_sample
 from mvdfusion_tpu_torch.geometry.rays import ndc_pixel_grid, pixel_rays, rays_to_points
 
@@ -150,3 +161,48 @@ def test_analytic_reprojection_photometric():
             got = grid_sample(imgB, mxy)[0].numpy()[visible]
             err_m = np.abs(got - tgt).mean()
             assert err_m > 0.12, f"mutation {name} not detected (err {err_m:.4f}) at pair {azA},{azB}"
+
+
+# ------------------------------------------------- camera helpers against JAX
+def _random_cameras(rng, b):
+    """b cameras: random rotations (QR of a normal matrix, det +1), T, f, c."""
+    q = np.linalg.qr(rng.normal(size=(b, 3, 3)))[0]
+    q[:, :, 0] *= np.sign(np.linalg.det(q))[:, None]
+    return [q.astype(np.float32), rng.normal(size=(b, 3)).astype(np.float32) * 2,
+            rng.uniform(1, 3, size=(b, 2)).astype(np.float32), rng.normal(size=(b, 2)).astype(np.float32) * 0.1]
+
+
+def _close_cameras(ours, ref, atol):
+    for a, b, name in zip(ours, ref, ("R", "T", "focal_length", "principal_point")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=atol, err_msg=name)
+
+
+def test_concat_cameras_matches_jax():
+    rng = np.random.default_rng(0)
+    parts = [_random_cameras(rng, b) for b in (3, 1, 2)]
+    ours = concat_cameras([make_cameras(*p) for p in parts])
+    ref = jcameras.concat_cameras([jcameras.make_cameras(*p) for p in parts])
+    assert len(ours) == len(ref) == 6
+    _close_cameras(ours, ref, 0.0)
+
+
+@pytest.mark.parametrize("distance", [3.5, 1.25])
+def test_normalize_cameras_matches_jax(distance):
+    """T rescaled so the mean centre distance is `distance` (3.5 by
+    default): within 1e-6 of the JAX function at 4 cameras, R, f and c
+    untouched. The JAX function takes exactly 4 (its `_replace` meets the
+    NamedTuple's __len__, which counts cameras); at 3 and 5 the port is held
+    to the same formula in float64."""
+    kw = {} if distance == 3.5 else dict(distance=distance)
+    p = _random_cameras(np.random.default_rng(1), 4)
+    ours = normalize_cameras(make_cameras(*p), **kw)
+    ref = jcameras.normalize_cameras(jcameras.make_cameras(*p), **kw)
+    _close_cameras(ours, ref, 1e-6)
+    assert torch.equal(ours.R, torch.as_tensor(p[0])) and float(jnp.abs(ref.T).max()) > 0.1
+    for b in (3, 5):
+        R, T, f, c = _random_cameras(np.random.default_rng(b), b)
+        ours = normalize_cameras(make_cameras(R, T, f, c), **kw)
+        centres = -np.einsum("bj,bkj->bk", T.astype(np.float64), R.astype(np.float64))
+        want = T * (distance / np.linalg.norm(centres, axis=1).mean())
+        np.testing.assert_allclose(ours.T.numpy(), want, rtol=0, atol=1e-6)
+        assert len(ours) == b and torch.equal(ours.focal_length, torch.as_tensor(f))

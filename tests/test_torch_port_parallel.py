@@ -7,9 +7,13 @@ users) on the CPU, at the tiny config, ranks as OS processes over gloo:
     that scene: the gradient the optimizer reads (averaged over the ranks)
     and the loss against jax.value_and_grad of the JAX scene_batch_loss on
     both scenes, under test_torch_port_train_grads.py's tolerances; the
-    masters after the step bit-equal to one rank's step on both scenes.
-    Every process here runs 2 intra-op threads, so the CPU's sums run in
-    the same order on both sides.
+    masters after the step bit-equal to one rank's step on both scenes, a
+    process of its own started as the ranks are. Every process here runs 2
+    intra-op threads with OpenMP's and MKL's dynamic thread counts off
+    (STATIC_THREADS), so the CPU's sums run in the same order on both
+    sides: with MKL_DYNAMIC on (MKL's default where torch.set_num_threads
+    is never called), MKL picks its threads by the host's load, and one
+    process's sums came apart from another's under the suite's load.
 (c) At grad_accum_step 2, the gradient averaged over the ranks once, at the
     optimizer step, against each call's averaged first (1e-6 x max|g|: the
     mean is linear, the two orders differ by fp32 rounding).
@@ -49,11 +53,13 @@ from mvdfusion_tpu_torch.core.checkpoint import restore_checkpoint
 from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
 from mvdfusion_tpu_torch.parallel import make_mesh
 from mvdfusion_tpu_torch.parallel.mesh import free_port, mesh_coords
-from mvdfusion_tpu_torch.pipeline import trainer
 
 REPO = Path(__file__).resolve().parents[1]
 S, IMG = 4, 64  # views a scene, 64^2 images -> 16^2 latents with the tiny VAE
 TIMEOUT = 600
+# every process these tests start: no dynamic thread adjustment (MKL's is on
+# by default until torch.set_num_threads is called)
+STATIC_THREADS = dict(OMP_DYNAMIC="FALSE", MKL_DYNAMIC="FALSE")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,7 +75,7 @@ def _few_threads():
 def _launch(argvs, port):
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(len(argvs)),
-               LOCAL_WORLD_SIZE=str(len(argvs)), OMP_NUM_THREADS=str(2 * len(argvs)))
+               LOCAL_WORLD_SIZE=str(len(argvs)), OMP_NUM_THREADS=str(2 * len(argvs)), **STATIC_THREADS)
     procs = [subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
              for r, argv in enumerate(argvs)]
@@ -181,7 +187,8 @@ def _leaf(tree, fp):
 @pytest.fixture(scope="module")
 def dp_step(tmp_path_factory):
     """The two ranks' results (tests/torch_port_parallel_worker.py), the JAX
-    reference on both scenes and one rank's step on both scenes."""
+    reference on both scenes and one rank's step on both scenes (the same
+    worker at world size 1, a process started as the ranks are)."""
     tmp = tmp_path_factory.mktemp("dp_step")
     model = _tiny()
     jcfg = dataclasses.replace(JConfig().tiny(), drop_conditions=True, fuse_mode="never")
@@ -203,11 +210,10 @@ def dp_step(tmp_path_factory):
     torch.save(dict(batch=tbatch, draws=draws), tmp / "in.pt")
     worker = str(REPO / "tests" / "torch_port_parallel_worker.py")
     run_ranks([[worker, str(tmp / "in.pt"), str(tmp / "out")]] * 2)
-    tc = trainer.TrainConfig(finetune_unet=True)  # as the ranks: every leaf but the VAE's and CLIP's trainable
-    state = trainer.init_train_state(model, tc)
-    loss = trainer.train_step(model, state, tbatch, tc, draws=draws)
+    run_ranks([[worker, str(tmp / "in.pt"), str(tmp / "one")]])
+    one = torch.load(tmp / "one0.pt")
     return dict(ranks=[torch.load(tmp / f"out{r}.pt") for r in range(2)], loss_ref=loss_ref, g_ref=g_ref,
-                table=table, loss=loss, masters=state.params)
+                table=table, loss=one["loss"], masters=one["masters"])
 
 
 def test_two_ranks_loss_and_gradients_match_jax(dp_step):
@@ -301,7 +307,7 @@ def test_two_rank_train_cli_checkpoints_on_rank0_and_resumes(tmp_path, gso):
     a, b = tmp_path / "a", tmp_path / "b"
     subprocess.run([sys.executable, *train, "-c", _train_config(tmp_path, gso, a), "--dp", "2", "--max-steps", "3"],
                    cwd=REPO, check=True, timeout=TIMEOUT, capture_output=True,
-                   env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="4"))
+                   env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="4", **STATIC_THREADS))
     cfg_b = _train_config(tmp_path, gso, b)
     outs = run_ranks([[*train, "-c", cfg_b, "--multihost", "--max-steps", "2"]] * 2)
     assert outs[0].count("saved checkpoint") == 2 and "saved checkpoint" not in outs[1], outs
@@ -341,7 +347,7 @@ def test_two_rank_demo_writes_the_one_process_files(tmp_path, gso):
                 "cpu", "--steps", "1", "--eval-num", "3"]
         if argvs is None:
             subprocess.run([sys.executable, *demo], cwd=REPO, check=True, timeout=TIMEOUT, capture_output=True,
-                           env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2"))
+                           env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2", **STATIC_THREADS))
         else:
             run_ranks([[*demo, "--multihost", "--scene-batch", "2"]] * argvs)
         vis = exp / "vis_gso_eval"

@@ -5,7 +5,8 @@ LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT).
     python tests/torch_port_parallel_worker.py IN.pt OUT_PREFIX
 
 IN.pt holds a 2-scene batch and each scene's p_losses draws. Rank r builds
-the tiny model (fp32, drop_conditions, randomize_ seed 0) and:
+the tiny model (fp32, drop_conditions, randomize_ seed 0) and (at world
+size 1, on both scenes with both draws, step 1 only):
   1. takes scene r of the batch with its draws through one train_step
      (finetune_unet: every UNet leaf trainable; grad_accum_step 1), recording the gradient the optimizer reads;
   2. from the same start at grad_accum_step 2, two calls on scene r with
@@ -29,9 +30,11 @@ def main() -> None:
     from mvdfusion_tpu_torch.pipeline import trainer
 
     dev = parallel.init_distributed("cpu")
-    rank = parallel.make_mesh(device=dev).rank
+    mesh = parallel.make_mesh(device=dev)
+    rank = mesh.rank
     data = torch.load(inp)
-    mine = {k: v[rank : rank + 1] for k, v in data["batch"].items()}
+    alone = mesh.world == 1
+    mine = data["batch"] if alone else {k: v[rank : rank + 1] for k, v in data["batch"].items()}
     model = randomize_(ViewFusion(dataclasses.replace(ViewFusionConfig().tiny(), drop_conditions=True),
                                   device="cpu"), seed=0)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -47,8 +50,11 @@ def main() -> None:
     # 1: one call, one optimizer step
     tc = trainer.TrainConfig(finetune_unet=True)
     state = trainer.init_train_state(model, tc)
-    loss = trainer.train_step(model, state, mine, tc, draws=[data["draws"][rank]])
+    loss = trainer.train_step(model, state, mine, tc, draws=data["draws"] if alone else [data["draws"][rank]])
     res = dict(loss=loss, grads=seen.pop(), masters={n: t.detach().clone() for n, t in state.params.items()})
+    if alone:
+        torch.save(res, f"{out}{rank}.pt")
+        return
 
     # 2: grad_accum_step 2, reduced once at the optimizer step against reduced every call
     trainer.load_params(model, start)
