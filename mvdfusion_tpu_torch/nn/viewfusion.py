@@ -21,7 +21,9 @@ embed_camera_pose=False the legacy zero123 cc_projection.{weight,bias}).
 `cfg.fuse_mode` ("auto" or "never") picks the UNet sites' and GridAttn's
 kernels or their module paths; pipeline/trainer.py runs the train step
 under its own (`TrainConfig.train_fuse_mode`, "never" by default).
-Randomness comes from a torch.Generator or is given explicitly.
+Randomness comes from a torch.Generator or is given explicitly. GridAttn's
+and the UNet's calls are spans of utils/trace.py (`model.gridattn`,
+`model.unet`).
 
 `mesh` (set by parallel/mesh.py::shard_params_) places the model on a
 (dp, sp, tp) mesh. Its tp axis splits the towers' layers (nn/layers.py).
@@ -51,6 +53,7 @@ from mvdfusion_tpu_torch.nn.viewattn import GridAttn
 from mvdfusion_tpu_torch.ops.image import area_downsample
 from mvdfusion_tpu_torch.parallel.tensor import even_slices, gather_rows
 from mvdfusion_tpu_torch.utils.common import normalize, unnormalize
+from mvdfusion_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,15 +309,17 @@ class ViewFusion(nn.Module):
     def _frustum(self, noisy_latents, batch_cameras, input_latents, input_cameras, t, t_embed, jitter_noise,
                  prev_depth, views=None):
         B = noisy_latents.shape[0]
-        frustum = self.view_attn(
-            noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
-            self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
-            overwrite_attn_depth=prev_depth, fuse_mode=self.cfg.fuse_mode, views=views,
-        )
+        with span("model.gridattn"):
+            frustum = self.view_attn(
+                noisy_latents, batch_cameras, torch.ones(B, device=noisy_latents.device), t_embed, t,
+                self.sched(noisy_latents.device), input_latents, input_cameras, jitter_noise,
+                overwrite_attn_depth=prev_depth, fuse_mode=self.cfg.fuse_mode, views=views,
+            )
         return torch.zeros_like(frustum) if self.cfg.ablate_frustum else frustum
 
     def _unet(self, x, t, ctx, levels):
-        return self.unet(x, t, ctx, levels, fuse_mode=self.cfg.fuse_mode, remat=self.cfg.unet_remat)
+        with span("model.unet"):
+            return self.unet(x, t, ctx, levels, fuse_mode=self.cfg.fuse_mode, remat=self.cfg.unet_remat)
 
     def apply_model(self, noisy_latents, batch_cameras, input_latents, input_cameras, clip_v_embed, t,
                     jitter_noise, prev_depth=None, drop=None, views=None):

@@ -55,8 +55,8 @@ def eval_scenes(
     generator, drawn as a one-scene call draws it, or from the given arrays
     (so a test can feed the JAX chain the same noise). If `timings` is a
     list, the call appends its {prepare, sample, decode} seconds,
-    synchronised on a CUDA device."""
-    sync = torch.cuda.synchronize if images.is_cuda else (lambda: None)
+    synchronised on a CUDA device; without one it adds no synchronisation."""
+    sync = torch.cuda.synchronize if images.is_cuda and timings is not None else (lambda: None)
     N = images.shape[0]
     sync()
     t0 = time.perf_counter()

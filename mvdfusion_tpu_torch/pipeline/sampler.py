@@ -11,7 +11,8 @@ from an explicit torch.Generator, or passed in (`init_noise`, `step_noise`,
 `jitter_noise`) so a test can feed the JAX sampler and this one the same
 noise stream. `ddim_sample_scenes` runs N scenes in one pass (one UNet call
 a step over their CFG batch), the counterpart of the JAX package's vmap
-over scenes; `ddim_sample` is its one-scene case.
+over scenes; `ddim_sample` is its one-scene case. The pass and each of its
+steps are spans of utils/trace.py (`sample.pass`, `sample.step`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from mvdfusion_tpu_torch.core.schedule import ddim_step, make_ddim_schedule
 from mvdfusion_tpu_torch.geometry.cameras import Cameras
 from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion
+from mvdfusion_tpu_torch.utils.trace import span
 
 
 class SampleResult(NamedTuple):
@@ -90,40 +92,42 @@ def ddim_sample_scenes(
     comes from generators[n], drawn in the order of a one-scene run (init,
     step, jitter), so a scene's draws do not depend on its batch mates.
     Returns latents (N, B, H, W, C) and the trajectory (N, S, B, H, W, C)."""
-    cfg = model.cfg
-    dev = clip_v_embed.device
-    N, B = clip_v_embed.shape[:2]
-    H = W = cfg.latent_size
-    C = cfg.unet_out_channels
-    ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev, eta=eta,
-                              method=method)
-    gens = list(generators) if generators is not None else [None] * N
-    xs, steps, jitters = [], [], []
-    for n in range(N):
-        draw = lambda *shape: torch.randn(shape, generator=gens[n], device=dev, dtype=torch.float32)
-        xs.append(draw(B, H, W, C) if init_noise is None else init_noise[n])
-        steps.append(draw(num_steps, B, H, W, C) if step_noise is None else step_noise[n])
-        jitters.append(draw(num_steps, B, H, W, cfg.n_pts_per_ray) if jitter_noise is None else jitter_noise[n])
-    x = torch.stack(xs).to(dev, torch.float32)
-    step_noise = torch.stack(steps, dim=1).to(dev, torch.float32)  # (S, N, B, ...)
-    jitter_noise = torch.stack(jitters, dim=1).to(dev, torch.float32)
+    with span("sample.pass", opens_pass=True):
+        cfg = model.cfg
+        dev = clip_v_embed.device
+        N, B = clip_v_embed.shape[:2]
+        H = W = cfg.latent_size
+        C = cfg.unet_out_channels
+        ddim = make_ddim_schedule(cfg.timesteps, num_steps, cfg.linear_start, cfg.linear_end, device=dev, eta=eta,
+                                  method=method)
+        gens = list(generators) if generators is not None else [None] * N
+        xs, steps, jitters = [], [], []
+        for n in range(N):
+            draw = lambda *shape: torch.randn(shape, generator=gens[n], device=dev, dtype=torch.float32)
+            xs.append(draw(B, H, W, C) if init_noise is None else init_noise[n])
+            steps.append(draw(num_steps, B, H, W, C) if step_noise is None else step_noise[n])
+            jitters.append(draw(num_steps, B, H, W, cfg.n_pts_per_ray) if jitter_noise is None else jitter_noise[n])
+        x = torch.stack(xs).to(dev, torch.float32)
+        step_noise = torch.stack(steps, dim=1).to(dev, torch.float32)  # (S, N, B, ...)
+        jitter_noise = torch.stack(jitters, dim=1).to(dev, torch.float32)
 
-    traj = []
-    prev_depth = None
-    for i in range(num_steps):
-        index = num_steps - 1 - i
-        t = ddim.timesteps[index].expand(B)
-        if feed_prev_depth and i == 0:
-            prev_depth = x[..., 4:5] / torch.sqrt(ddim.alphas[index])
-        noise_pred = model.apply_model_cfg_scenes(
-            x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i],
-            prev_depth=prev_depth,
-        )
-        x, pred_x0 = ddim_step(ddim, x, noise_pred, index, step_noise[i])
-        if x_clip is not None:
-            x = torch.clamp(x, -x_clip, x_clip)
-        if feed_prev_depth:
-            prev_depth = pred_x0[..., 4:5]
-        if return_trajectory:
-            traj.append(pred_x0)
-    return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj, dim=1) if return_trajectory else None)
+        traj = []
+        prev_depth = None
+        for i in range(num_steps):
+            with span("sample.step", step=i, device=dev):
+                index = num_steps - 1 - i
+                t = ddim.timesteps[index].expand(B)
+                if feed_prev_depth and i == 0:
+                    prev_depth = x[..., 4:5] / torch.sqrt(ddim.alphas[index])
+                noise_pred = model.apply_model_cfg_scenes(
+                    x, batch_cameras, input_latents, input_cameras, clip_v_embed, t, cfg_scale, jitter_noise[i],
+                    prev_depth=prev_depth,
+                )
+                x, pred_x0 = ddim_step(ddim, x, noise_pred, index, step_noise[i])
+                if x_clip is not None:
+                    x = torch.clamp(x, -x_clip, x_clip)
+                if feed_prev_depth:
+                    prev_depth = pred_x0[..., 4:5]
+                if return_trajectory:
+                    traj.append(pred_x0)
+        return SampleResult(latents=x, pred_x0_trajectory=torch.stack(traj, dim=1) if return_trajectory else None)
