@@ -1505,7 +1505,7 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
         _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1 + r, dev)
         step_s.append(ts / steps)
         req_s.append(tp + ts + td)
-    counts = dict(_lib.LAUNCHES)
+    counts = dict(_lib.counted())
     if dev.type != "cuda":
         return counts
     # launches the path implies at this config (PERF.md, Findings):
@@ -1536,11 +1536,11 @@ def run_slice(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
-    vae = check_gn_shapes(_lib.GN_SHAPES, GN_BATCH["slice"], REQUESTS * steps)
+    vae = check_gn_shapes(_lib.counted("GN_SHAPES"), GN_BATCH["slice"], REQUESTS * steps)
     check(vae == REQUESTS * (VAE_GN_ENCODE + VAE_GN_DECODE), f"K1 in the VAE: {vae} calls")
-    counts.update(_lib.GEMM_SHAPES)
-    counts.update(_lib.GN_SHAPES)
-    counts.update(_lib.LN_SHAPES)
+    counts.update(_lib.counted("GEMM_SHAPES"))
+    counts.update(_lib.counted("GN_SHAPES"))
+    counts.update(_lib.counted("LN_SHAPES"))
     if profile:
         profile_steps(model, prepared, profile)
     B = len(scene["target_idx"])
@@ -1585,7 +1585,7 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None, 
     out = eval_scenes(model, on(images), on(R[None]), on(T[None]), on(f[None]), on(c[None]), on(sel[:1]),
                       on(sel[1:]), 2.5, num_steps=steps, generators=[torch.Generator(device=dev).manual_seed(SEED)],
                       timings=timings)
-    counts = dict(_lib.LAUNCHES)
+    counts = dict(_lib.counted())
     o = {k: v[0].float().cpu().numpy() for k, v in out._asdict().items()}
     t = timings[0]
     log(f"  scene: prepare {t['prepare']:.3f}s, {steps} steps {t['sample']:.3f}s ({t['sample'] / steps:.4f} s/step), "
@@ -1627,10 +1627,10 @@ def run_eval(steps: int, card: str, device: str = "cuda", cfg=None, model=None, 
     log(f"  launch counts {counts}, implied {want}")
     for k, n in want.items():
         check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
-    check_gn_shapes(_lib.GN_SHAPES, GN_BATCH["eval"], steps)
-    counts.update(_lib.GEMM_SHAPES)
-    counts.update(_lib.GN_SHAPES)
-    counts.update(_lib.LN_SHAPES)
+    check_gn_shapes(_lib.counted("GN_SHAPES"), GN_BATCH["eval"], steps)
+    counts.update(_lib.counted("GEMM_SHAPES"))
+    counts.update(_lib.counted("GN_SHAPES"))
+    counts.update(_lib.counted("LN_SHAPES"))
     if profile:
         profile_steps(model, eval_prepared(model, dev), profile, what="eval, CFG batch 30",
                       feed_prev_depth=cfg.feed_prev_depth)
@@ -1674,7 +1674,7 @@ def run_forms(steps: int, card: str, device: str = "cuda", cfg=None, profile: in
             torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         _, prepared, (tp, ts, td) = answer(model, scene, steps, SEED + 1, dev)
-        counts, shapes = dict(_lib.LAUNCHES), {**_lib.GEMM_SHAPES, **_lib.LN_SHAPES}
+        counts, shapes = dict(_lib.counted()), {**_lib.counted("GEMM_SHAPES"), **_lib.counted("LN_SHAPES")}
         # one DDIM step (the first of a --forms-steps schedule) from the same
         # latents and noise, forms on, then off
         g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1998,7 +1998,7 @@ def run_weights(card: str, device: str = "cuda", cfg=None, model=None, out_dir=N
         # 5. a deterministic request: eta=0 on quad timesteps
         _lib.reset_launches()
         lat, prepared, _ = answer(src, scene, WEIGHTS_STEPS, SEED + 12, dev, eta=0.0, method="quad")
-        counts = dict(_lib.LAUNCHES)
+        counts = dict(_lib.counted())
         ls, B, D = cfg.latent_size, len(scene["target_idx"]), cfg.n_pts_per_ray
         gn = torch.Generator(device=dev).manual_seed(SEED + 13)
         draw = lambda *shape: torch.randn(shape, generator=gn, device=dev)
@@ -2099,8 +2099,9 @@ def run_scenes(steps: int, card: str, device: str = "cuda", cfg=None, model=None
         out = {k: torch.cat([getattr(o, k) for o in outs]) for k in outs[0]._fields}
         seconds = sum(sum(t.values()) for t in timings)
         runs[mode] = dict(out=out, seconds=seconds, sample=sum(t["sample"] for t in timings),
-                          launches=dict(_lib.LAUNCHES), gn_shapes=dict(_lib.GN_SHAPES),
-                          shapes={**_lib.GEMM_SHAPES, **_lib.GN_SHAPES, **_lib.LN_SHAPES},
+                          launches=dict(_lib.counted()), gn_shapes=dict(_lib.counted("GN_SHAPES")),
+                          shapes={**_lib.counted("GEMM_SHAPES"), **_lib.counted("GN_SHAPES"),
+                                  **_lib.counted("LN_SHAPES")},
                           peak=torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan"))
     got, want = runs["batched"]["out"], runs["alone"]["out"]
     B, ls = EVAL_TARGETS, model.cfg.latent_size
@@ -2194,7 +2195,7 @@ def scene_step_gap(model, scenes, steps: int) -> tuple:
         _lib.reset_launches()
         with _lib.plain_versions():
             both_plain = batched()
-        check(not _lib.LAUNCHES, f"kernels launched under the kernel-off switch: {dict(_lib.LAUNCHES)}")
+        check(not _lib.counted(), f"kernels launched under the kernel-off switch: {dict(_lib.counted())}")
     for name in calls:  # the batched call's rows [cond of each scene | null of each scene], B rows a scene
         outs = seen[name]
         if len(outs) != 1 + SCENES or outs[0].shape[0] != 2 * SCENES * B:
@@ -2653,7 +2654,7 @@ def run_train(card: str, steps: int = 1, device: str = "cuda", tiny: bool = Fals
             t0 = time.perf_counter()
             model, state = cli.main(argv + ["--max-steps", str(k * steps)])
             run_s = time.perf_counter() - t0
-            counts = dict(_lib.LAUNCHES)
+            counts = dict(_lib.counted())
             peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
             check(state.step == k * steps and state.opt_state["count"] == steps,
                   f"{state.step} calls, {state.opt_state['count']} optimizer steps")
@@ -3078,7 +3079,7 @@ def tp_sample(dev, tiny: bool, mesh=None) -> dict:
                                      jitter_noise=jitter).latents
         sync()
         secs["steps"] = time.perf_counter() - t0
-        counts["default"] = dict(_lib.LAUNCHES)
+        counts["default"] = dict(_lib.counted())
         _lib.reset_launches()
         set_forms(True)
         set_vae_forms(False, True)
@@ -3092,7 +3093,7 @@ def tp_sample(dev, tiny: bool, mesh=None) -> dict:
         finally:
             set_forms(False)
             set_vae_forms(False, False)
-        counts["switched"] = dict(_lib.LAUNCHES)
+        counts["switched"] = dict(_lib.counted())
         out.update(input_latents=in_lat, clip_v=clip_v)
         if mesh is None:  # the noise scale: the same step with every kernel off
             with _lib.plain_versions():
@@ -3459,10 +3460,10 @@ def run_learn(card: str, device: str = "cuda") -> dict:
         _lib.reset_launches()
         t0 = time.perf_counter()
         _, trained = O.evaluate(model, batch, args, eval_views=LEARN_VIEWS, tag="trained")
-        eval_s, counts = time.perf_counter() - t0, dict(_lib.LAUNCHES)
+        eval_s, counts = time.perf_counter() - t0, dict(_lib.counted())
         with _lib.plain_versions():
             _, plain = O.evaluate(model, batch, args, eval_views=LEARN_VIEWS, tag="plain", scenes=[0])
-            plain_launches = sum(_lib.LAUNCHES.values()) - sum(counts.values())
+            plain_launches = sum(_lib.counted().values()) - sum(counts.values())
     mean_psnr = lambda res: float(np.mean([p for r in res for p in r["psnr"]]))
     floor_psnr, trained_psnr = mean_psnr(floor), mean_psnr(trained)
     floor_dmae = float(np.mean([r["depth_mae"] for r in floor]))

@@ -14,7 +14,7 @@ def harmonic_frequencies(n_harmonic: int = 7, omega0: float = 0.1) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _frequency_tensor(n_harmonic: int, omega0: float, device: torch.device) -> torch.Tensor:
+def frequency_tensor(n_harmonic: int, omega0: float, device: torch.device) -> torch.Tensor:
     """harmonic_frequencies as an fp32 tensor on `device`, made once (a copy
     from the host on every call would stall it and a CUDA graph)."""
     return torch.tensor(harmonic_frequencies(n_harmonic, omega0), dtype=torch.float32).to(device)
@@ -22,6 +22,6 @@ def _frequency_tensor(n_harmonic: int, omega0: float, device: torch.device) -> t
 
 def harmonic_embed(x: torch.Tensor, n_harmonic: int = 7, omega0: float = 0.1) -> torch.Tensor:
     """[..., d] -> [..., d * (2 * n_harmonic + 1)]."""
-    freqs = _frequency_tensor(n_harmonic, omega0, x.device)
+    freqs = frequency_tensor(n_harmonic, omega0, x.device)
     xf = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     return torch.cat([torch.sin(xf), torch.cos(xf), x], dim=-1)

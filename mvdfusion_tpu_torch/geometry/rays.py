@@ -5,6 +5,7 @@ on the z=0 plane."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -27,9 +28,16 @@ def ndc_pixel_grid(height: int, width: int) -> np.ndarray:
     return np.stack([x, y], axis=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def pixel_grid(height: int, width: int, device: torch.device) -> torch.Tensor:
+    """ndc_pixel_grid as an fp32 tensor on `device`, made once (a copy from
+    the host on every call would stall the stream and a CUDA graph)."""
+    return torch.as_tensor(ndc_pixel_grid(height, width)).to(device)
+
+
 def pixel_rays(cams: Cameras, height: int, width: int) -> RayGrid:
     B = len(cams)
-    xy = torch.as_tensor(ndc_pixel_grid(height, width), device=cams.R.device)
+    xy = pixel_grid(height, width, cams.R.device)
     xy = xy.reshape(1, height * width, 2).expand(B, -1, -1)
     one = torch.ones_like(xy[..., :1])
     p1 = unproject_points(cams, torch.cat([xy, one], dim=-1))

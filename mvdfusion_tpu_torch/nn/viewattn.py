@@ -30,9 +30,22 @@ rays, as a rank of the sp axis runs it (parallel/mesh.py): N = |views| H W D
 query points, each still gathering from and attending across all V views'
 embedded latents, so the caller passes every view's noisy latent. GridAttn
 is whole under tensor parallelism (the JAX rule replicates view_attn).
+
+`forward` runs its body (`eager_forward`) as it is, or, where its tensors
+are on CUDA, autograd records nothing and the stream is not capturing, as a
+CUDA graph of that body (utils/graphs.py): captured at the first call of a
+key (`graph_key`: the shapes and every choice the body makes, and the
+parameters' pointers and versions), then replayed, its inputs copied in and
+its output copied out. Both issue the same kernels and aten ops; a replay
+issues them without the host. The last MAX_GRAPHS graphs are kept; a
+parameter's change (a weight reload) drops the graphs of the old weights.
+Each graph call is a span of utils/trace.py, `gridattn.capture` or
+`gridattn.replay`.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn as nn
@@ -41,8 +54,8 @@ import torch.nn.functional as F
 from mvdfusion_tpu_torch.core.schedule import DDPMSchedule
 from mvdfusion_tpu_torch.geometry.cameras import Cameras, camera_center, camera_slice, transform_points_ndc
 from mvdfusion_tpu_torch.geometry.gridsample import grid_sample
-from mvdfusion_tpu_torch.geometry.harmonics import harmonic_embed, harmonic_frequencies
-from mvdfusion_tpu_torch.geometry.rays import pixel_rays, plucker_coords, rays_to_points
+from mvdfusion_tpu_torch.geometry.harmonics import frequency_tensor, harmonic_embed, harmonic_frequencies
+from mvdfusion_tpu_torch.geometry.rays import pixel_grid, pixel_rays, plucker_coords, rays_to_points
 from mvdfusion_tpu_torch.nn.layers import Linear, Mlp, TimmAttention, gelu_exact, silu
 from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.crossview import (
@@ -52,6 +65,8 @@ from mvdfusion_tpu_torch.ops.crossview import (
     prepared_crossview_weights,
     should_fuse_crossview,
 )
+from mvdfusion_tpu_torch.utils.graphs import Graphed
+from mvdfusion_tpu_torch.utils.trace import span
 
 
 def _ln_plain(x, eps: float = 1e-6):
@@ -95,6 +110,13 @@ class AggregationTransformer(nn.Module):
 # the harmonic embedding's 7 frequencies omega0 * 2^k
 DEPTH_SCALE, DEPTH_SHIFT = 2.0, 0.5
 N_HARMONIC, OMEGA0 = 7, 0.1
+MAX_GRAPHS = 4  # GridAttn's CUDA graphs kept at once (one a call shape)
+
+
+def graphable(x: torch.Tensor) -> bool:
+    """Whether a call on activations `x` runs as a CUDA graph: x on CUDA,
+    autograd recording nothing, the stream not capturing already."""
+    return x.is_cuda and not torch.is_grad_enabled() and not torch.cuda.is_current_stream_capturing()
 
 
 class GridAttn(nn.Module):
@@ -121,6 +143,7 @@ class GridAttn(nn.Module):
         self.pre_layer_b = nn.ModuleList([Linear(sum(self.dims), hs)])
         self.aggregation_transformer = AggregationTransformer(hs, num_heads, num_layers, mlp_ratio)
         self.final_layer_b = Linear(hs, output_dim)
+        self._graphs = collections.OrderedDict()  # graph_key -> Graphed, oldest use first
 
     def part_weight(self, i: int) -> torch.Tensor:
         """(hid, dims[i]) slice of pre_layer_b for concat slot i."""
@@ -197,7 +220,61 @@ class GridAttn(nn.Module):
             geo, agg = self._static_kernel_weights()
         return geo, agg._replace(mods=mods)
 
-    def forward(
+    def graph_key(self, noisy_latents, batch_cameras, predict_mask, t_embed, t, sched, input_latents, input_cameras,
+                  jitter_noise, overwrite_attn_depth=None, fuse_mode="auto", views=None) -> tuple:
+        """What a CUDA graph of eager_forward fixes for forward's arguments:
+        every tensor's shape and dtype (None for the overwrite not given),
+        the device, fuse_mode, views, the kernel-off switch, the DDPM tables'
+        pointers, and the data pointer, version and dtype of every parameter
+        (as the prepared weights' cache, ops/_lib.py::cached), last."""
+        tensors = (noisy_latents, *batch_cameras, predict_mask, t_embed, t, input_latents, *input_cameras,
+                   jitter_noise, overwrite_attn_depth)
+        return (
+            tuple(None if x is None else (x.shape, x.dtype) for x in tensors), noisy_latents.device, fuse_mode,
+            None if views is None else (views.start, views.stop), _lib.switched_off(),
+            sched.sqrt_alphas_cumprod.data_ptr(), sched.sqrt_one_minus_alphas_cumprod.data_ptr(),
+            tuple((p.data_ptr(), p._version, p.dtype) for p in self.parameters()),
+        )
+
+    def forward(self, noisy_latents, batch_cameras: Cameras, predict_mask, t_embed, t, sched: DDPMSchedule,
+                input_latents, input_cameras: Cameras, jitter_noise, overwrite_attn_depth=None,
+                fuse_mode: str = "auto", views: slice | None = None):
+        """eager_forward, as a CUDA graph where `graphable` (module
+        docstring)."""
+        args = (noisy_latents, batch_cameras, predict_mask, t_embed, t, sched, input_latents, input_cameras,
+                jitter_noise, overwrite_attn_depth, fuse_mode, views)
+        if not graphable(noisy_latents):
+            return self.eager_forward(*args)
+        key = self.graph_key(*args)
+        # the body reads t_embed's row 0 alone (the shared t)
+        inputs = (noisy_latents, *batch_cameras, predict_mask, t_embed[:1], t, input_latents, *input_cameras,
+                  jitter_noise, overwrite_attn_depth)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            with span("gridattn.replay"):
+                return graph(inputs)
+        params = key[-1]
+        for old in [k for k in self._graphs if k[-1] != params]:  # the old weights' graphs
+            del self._graphs[old]
+        while len(self._graphs) >= MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+
+        def body(x, R, T, f, c, mask, te, tt, x_in, R_in, T_in, f_in, c_in, jitter, overwrite):
+            return self.eager_forward(x, Cameras(R, T, f, c), mask, te, tt, sched, x_in,
+                                      Cameras(R_in, T_in, f_in, c_in), jitter, overwrite, fuse_mode, views)
+
+        with span("gridattn.capture"):
+            graph = Graphed(body, inputs)
+            # what the graph reads without a copy, held while it lives
+            graph.keep = (sched, getattr(self, "_mvdf_crossview_weights", None),
+                          [p.detach() for p in self.parameters()],
+                          frequency_tensor(N_HARMONIC, OMEGA0, noisy_latents.device),
+                          pixel_grid(*noisy_latents.shape[1:3], noisy_latents.device))
+            self._graphs[key] = graph
+            return graph(inputs)
+
+    def eager_forward(
         self,
         noisy_latents,  # (B, H, W, 5) NHWC
         batch_cameras: Cameras,  # V == B target cameras

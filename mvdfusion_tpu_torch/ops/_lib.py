@@ -25,7 +25,10 @@ one exactly where it launches and nowhere else. ``GEMM_SHAPES`` breaks the
 GEMM's launches down by route and shape (ops/block.py::gemm), and
 ``GN_SHAPES`` K1's by (B, N, C, act) (ops/groupnorm.py::launch_group_norm,
 the UNet's GroupNorms and the sites' own), ``LN_SHAPES`` the sites'
-LayerNorm's by (M, C) (ops/block.py::layernorm).
+LayerNorm's by (M, C) (ops/block.py::layernorm). These four count what the
+host launches. A replay of a captured CUDA graph (utils/graphs.py) launches
+its kernels from the graph: it adds the counts its capture made to
+``REPLAYED``, under the counter's name, and `counted` gives both together.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 GEMM_SHAPES: collections.Counter = collections.Counter()
 GN_SHAPES: collections.Counter = collections.Counter()
 LN_SHAPES: collections.Counter = collections.Counter()
+_COUNTERS = dict(LAUNCHES=LAUNCHES, GEMM_SHAPES=GEMM_SHAPES, GN_SHAPES=GN_SHAPES, LN_SHAPES=LN_SHAPES)
+REPLAYED: dict = {name: collections.Counter() for name in _COUNTERS}
 
 # entry point -> argument kinds: p pointer, i int32, l int64, f float32
 _SIGNATURES = {
@@ -80,10 +85,36 @@ _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
-    GEMM_SHAPES.clear()
-    GN_SHAPES.clear()
-    LN_SHAPES.clear()
+    for c in (*_COUNTERS.values(), *REPLAYED.values()):
+        c.clear()
+
+
+def counted(name: str = "LAUNCHES") -> collections.Counter:
+    """Counter `name` (LAUNCHES or a shape counter) with the graph replays'
+    counts added: every kernel that ran, from the host or a graph."""
+    return _COUNTERS[name] + REPLAYED[name]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The calls inside count nothing: on exit the counters are as they were
+    before, and the yielded dict holds, by counter name, what the calls
+    counted (a graph's capture, which launches nothing)."""
+    before = {name: collections.Counter(c) for name, c in _COUNTERS.items()}
+    got = {}
+    try:
+        yield got
+    finally:
+        for name, c in _COUNTERS.items():
+            got[name] = c - before[name]
+            c.clear()
+            c.update(before[name])
+
+
+def count_replay(counts: dict) -> None:
+    """Add a replay's counts (uncounted's dict of its capture) to REPLAYED."""
+    for name, c in counts.items():
+        REPLAYED[name].update(c)
 
 
 def nvcc_path() -> str:

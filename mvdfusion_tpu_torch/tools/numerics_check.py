@@ -44,10 +44,10 @@ def compare(model, seed: int = 0, B: int = 8) -> dict:
             torch.full((B,), 500, device=dev), 2.5, r(B, H, H, D))
     with torch.no_grad():
         fused = model.apply_model_cfg(*args).float()
-        before = sum(_lib.LAUNCHES.values())
+        before = sum(_lib.counted().values())
         with _lib.plain_versions():
             plain = model.apply_model_cfg(*args).float()
-        plain_launches = sum(_lib.LAUNCHES.values()) - before
+        plain_launches = sum(_lib.counted().values()) - before
     err = (fused - plain).abs()
     scale = plain.abs().max().item()
     bound = TOLERANCE * max(1.0, scale)

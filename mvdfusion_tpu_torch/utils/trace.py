@@ -23,6 +23,9 @@ The spans of the port, one record each call:
     sample.pass      pipeline/sampler.py::ddim_sample_scenes, opens the pass
     sample.step      each step of its loop (the model, ddim_step, the clamp)
     model.gridattn   nn/viewfusion.py::_frustum's GridAttn call, N a step
+    gridattn.capture inside model.gridattn: nn/viewattn.py::GridAttn.forward
+                     captured its CUDA graph (the first call of a key)
+    gridattn.replay  inside model.gridattn: it replayed one
     model.unet       nn/viewfusion.py::_unet's UNet call, 1 a step
 
 Training reaches the two model spans too, outside any pass and step. The

@@ -618,3 +618,124 @@ def test_gpu_loaded_file_reaches_the_cached_site_weights(cuda, tmp_path):
         after, want = a(x, context), b(x, context)
     assert _lib.LAUNCHES["transformer_block"] == 3
     assert torch.equal(after, want) and not torch.equal(after, first)
+
+
+def _gridattn_call(dev, V, seed, overwrite, sched):
+    """GridAttn.forward's arguments at the published widths for V target
+    views of 32^2 latents (the sampler's: fp32 latents, t_embed of 256, the
+    DDPM tables `sched`), from `seed`."""
+    import numpy as np
+
+    from mvdfusion_tpu_torch.geometry.cameras import look_at_view_transform, make_cameras
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    R, T = look_at_view_transform(dist=1.5, elev=10.0 + seed, azim=np.linspace(0, 360, V + 1)[:-1] + 7 * seed)
+    cams = make_cameras(R, T, 2.1875, device=dev)
+    R0, T0 = look_at_view_transform(dist=1.5, elev=20.0, azim=np.array([3.0 * seed]))
+    t = torch.full((V,), 100 + 37 * seed, dtype=torch.long, device=dev)
+    return (r(V, 32, 32, 5), cams, torch.ones(V, device=dev), r(V, 256), t, sched,
+            r(1, 32, 32, 5), make_cameras(R0, T0, 2.1875, device=dev), r(V, 32, 32, 1),
+            r(V, 32, 32, 1) if overwrite else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overwrite", [False, True], ids=["estimate", "overwrite"])
+@pytest.mark.parametrize("V,route", [(8, "single"), (15, "two_phase")])
+def test_gpu_gridattn_graph_replays_bit_equal_to_the_eager_body(cuda, V, route, overwrite):
+    """GridAttn at the published widths in bf16 (K4 at V=8, K4b at V=15):
+    the capturing call, a replay on another pass's cameras, latents, t and
+    jitter (a value baked into the graph would show), a second scene's
+    replay before the first's output is read (an output the next replay
+    overwrote would show), and, after a weight reload, a new capture (stale
+    prepared weights would show): each bit-equal to eager_forward on the
+    same inputs. The replays count their kernels in _lib.REPLAYED, none in
+    LAUNCHES; under autograd forward takes the eager body."""
+    from mvdfusion_tpu_torch.core.schedule import make_ddpm_schedule
+    from mvdfusion_tpu_torch.nn.viewattn import GridAttn
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.utils import trace
+
+    assert K4.crossview_route(V, 32, 32, 256, torch.bfloat16) == route
+    m = GridAttn(hidden_size=256, output_dim=768, num_heads=8, num_layers=3).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(V)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=cuda) * (p.shape[-1] ** -0.5 if p.ndim == 2 else 0.1))
+    m.to(torch.bfloat16)
+    sched = make_ddpm_schedule(device=cuda)  # one table, as the model keeps one a device: its pointers are keyed
+    calls = [_gridattn_call(cuda, V, s, overwrite, sched) for s in range(3)]
+    key = "crossview_two_phase" if route == "two_phase" else "crossview"
+    trace.clear()
+    _lib.reset_launches()
+    with torch.no_grad():
+        got = [m(*a) for a in calls]  # capture, then two replays, none read before the last
+        host = _lib.LAUNCHES[key]
+        want = [m.eager_forward(*a) for a in calls]
+        assert host == 0 and _lib.REPLAYED["LAUNCHES"][key] == 3 and _lib.LAUNCHES[key] == 3
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert not torch.equal(got[0], got[1])
+        for p in m.parameters():  # a weight reload: the copy moves every parameter's version
+            p.copy_(p * 0.5)
+        again = m(*calls[0])
+        assert torch.equal(again, m.eager_forward(*calls[0])) and not torch.equal(again, got[0])
+        assert len(m._graphs) == 1
+    with torch.enable_grad():
+        m(*calls[1])
+    names = [r.name for r in trace.records()]
+    assert names == ["gridattn.capture", "gridattn.replay", "gridattn.replay", "gridattn.capture"]
+
+
+@pytest.mark.gpu
+def test_gpu_a_sampler_step_neither_synchronises_nor_copies_from_the_host(cuda, tmp_path):
+    """A profiled pass of the tiny configuration after one that captured
+    GridAttn's graph: no cudaStreamSynchronize, cudaDeviceSynchronize or
+    cudaMemcpy inside any `mvdf.sample.step`, and no cudaMemcpyAsync there
+    that copies from or to the host (read from the copy its correlation id
+    names, where the trace kept it); GridAttn replays its graph
+    (cudaGraphLaunch) at every call."""
+    import json
+
+    import numpy as np
+
+    from mvdfusion_tpu_torch.geometry.cameras import look_at_view_transform
+    from mvdfusion_tpu_torch.nn.viewfusion import ViewFusion, ViewFusionConfig, randomize_
+    from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample_scenes
+    from mvdfusion_tpu_torch.utils import trace
+    from torch.profiler import ProfilerActivity, profile
+
+    N, S, views = 2, 4, 4
+    with torch.no_grad():
+        model = randomize_(ViewFusion(ViewFusionConfig().tiny(), device=cuda), seed=0).eval()
+        R, T = look_at_view_transform(dist=1.5, elev=30.0, azim=np.linspace(0, 315, views) + 90)
+        idx = torch.tensor([0], device=cuda), torch.arange(1, views, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        prepared = [model.prepare_batch(torch.rand(views, 64, 64, 3, generator=g, device=cuda),
+                                        torch.as_tensor(R, device=cuda), torch.as_tensor(T, device=cuda),
+                                        torch.full((views, 2), 2.1875, device=cuda),
+                                        torch.zeros(views, 2, device=cuda), *idx) for _ in range(N)]
+        _, cams, in_lat, in_cams, clip_v = zip(*prepared)
+        run = lambda: ddim_sample_scenes(model, cams, in_lat, in_cams, torch.stack(clip_v), 2.5, num_steps=S)
+        run()
+        torch.cuda.synchronize()
+        trace.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "mvdf.sample.step"]
+    assert len(steps) == S
+    inside = lambda e: any(a <= e["ts"] <= b for a, b in steps)
+    runtime = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and inside(e)]
+    copies = {e["args"].get("correlation"): e["name"] for e in events if e.get("cat") == "gpu_memcpy"}
+    names = [e["name"] for e in runtime]
+    assert not {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"} & set(names), sorted(set(names))
+    host_copies = [copies.get(e["args"].get("correlation")) for e in runtime if e["name"] == "cudaMemcpyAsync"]
+    assert not [c for c in host_copies if c and ("HtoD" in c or "DtoH" in c)], host_copies
+    assert names.count("cudaGraphLaunch") == N * S
+    spans = [r.name for r in trace.records() if r.name.startswith("gridattn.")]
+    assert spans == ["gridattn.replay"] * (N * S)
