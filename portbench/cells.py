@@ -3,9 +3,11 @@
 BENCHMARK.json names the cell's configuration, traffic and metrics; the
 files are portbench/configs/<config>.json (the path BENCHMARK.json gives),
 portbench/traffic/<traffic>.json, portbench/workloads/<cell>.json (the
-cell's correctness sample and limits) and portbench/metrics/<metric>.py
-(one reader a metric). A new cell, configuration, traffic mix or metric is
-new files and new BENCHMARK.json entries; no code here changes.
+cell's correctness sample and limits), portbench/metrics/<metric>.py
+(one reader a metric) and portbench/archs/<arch>.py (the architecture the
+configuration's top-level "arch" names, "mvdfusion" where it names none).
+A new cell, configuration, traffic mix, metric or architecture is new
+files and new BENCHMARK.json entries; no code here changes.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = "portbench"
+DEFAULT_ARCH = "mvdfusion"
 
 
 class Cell(NamedTuple):
@@ -28,6 +32,7 @@ class Cell(NamedTuple):
     end_to_end: list  # BENCHMARK.json metric entries this cell reports
     per_layer: list
     root: Path
+    arch: ModuleType  # portbench/archs/<arch>.py
 
 
 def _named(items: list, name: str, what: str) -> dict:
@@ -41,26 +46,36 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def _load_file(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def arch_of(config: dict, root: Path = ROOT) -> ModuleType:
+    """The module portbench/archs/<arch>.py under `root` for a
+    configuration."""
+    name = config.get("arch", DEFAULT_ARCH)
+    return _load_file(Path(root) / HERE / "archs" / f"{name}.py", f"portbench_arch_{name}")
+
+
 def load(name: str, root: Path = ROOT) -> Cell:
     root = Path(root)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     w = _named(bench["workloads"], name, "workload")
     cfg = _named(bench["configs"], w["config"], "config")
     read = lambda *parts: json.loads(root.joinpath(*parts).read_text())
+    config = read(cfg["file"])
     return Cell(
-        name=name, entry=w, config=read(cfg["file"]), traffic=read(HERE, "traffic", f"{w['traffic']}.json"),
+        name=name, entry=w, config=config, traffic=read(HERE, "traffic", f"{w['traffic']}.json"),
         spec=read(HERE, "workloads", f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
-        root=root,
+        root=root, arch=arch_of(config, root),
     )
 
 
 def reader(cell: Cell, metric: str):
     """The `read(run)` function of portbench/metrics/<metric>.py."""
-    path = cell.root / HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric.replace('.', '_').replace('-', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file(cell.root / HERE / "metrics" / f"{metric}.py", f"portbench_metric_{metric}").read

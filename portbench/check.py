@@ -1,18 +1,15 @@
 """The comparison that decides `correct`: the program's served outputs of
 a sample of the window's scenes against the plain reference run on the same
-weights, images, cameras and noise.
+weights, inputs and noise.
 
-For each sampled scene the reference prepares, samples and decodes as the
-entry does (portbench/reference.py), in float32 without TF32, and each
-output is compared view by view: the root-mean-square gap of a view over
-its pixels and channels, the worst view of the worst sampled scene. The
-names and what each covers:
-
-  rgb    pred_rgb: prepare (VAE encode, CLIP, cameras), every DDIM step
-         (GridAttn, the UNet, the CFG mix, the update), the VAE decode
-  depth  pred_depth: the same trajectory's depth channel, undecoded
-  vae    gt_rgb, where the entry decodes the ground truth: the VAE's
-         encode and decode alone
+For each sampled scene the architecture's reference (its `reference_class`
+and `reference_scene`, portbench/archs/<arch>.py) serves it as the entry
+does, in float32 without TF32, and each output that the architecture's
+OUTPUTS names is compared view by view: the root-mean-square gap of a view
+over its pixels and channels, the worst view of the worst sampled scene.
+The control is that reference with its products in float8
+(`precision.fake_quantize_`: every Linear and Conv2d, and each product the
+reference's own modules round by their `fake_quantize_`).
 """
 
 from __future__ import annotations
@@ -20,9 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench import reference, weights
-
-OUTPUTS = dict(rgb="pred_rgb", depth="pred_depth", vae="gt_rgb")
+from portbench import precision, weights
 
 
 def sample_scenes(cell, seed: int, passes: int) -> list:
@@ -40,13 +35,13 @@ def sample_scenes(cell, seed: int, passes: int) -> list:
     return sorted(picks)
 
 
-def reference_model(m: dict, state: dict, device, fp8: bool = False):
+def reference_model(arch, m: dict, state: dict, device, fp8: bool = False):
     with torch.device("meta"):
-        ref = reference.ViewFusion(m)
+        ref = arch.reference_class(m)
     ref = ref.to_empty(device=device)
     weights.load_reference(ref, state)
     if fp8:
-        reference.fake_quantize_(ref)
+        precision.fake_quantize_(ref)
     return ref.eval()
 
 
@@ -57,30 +52,17 @@ def view_rms(a, b):
 
 
 @torch.no_grad()
-def reference_scene(ref, inf: dict, p: dict, n: int, decode_gt: bool) -> dict:
+def reference_scene(arch, ref, inf: dict, p: dict, n: int, decode_gt: bool) -> dict:
     """The reference's outputs for scene n of a pass's inputs `p`, its
     products in true float32."""
-    with reference.float32_products():
-        return _reference_scene(ref, inf, p, n, decode_gt)
+    with precision.float32_products():
+        return arch.reference_scene(ref, inf, p, n, decode_gt)
 
 
-def _reference_scene(ref, inf, p, n, decode_gt):
-    prep = reference.prepare(ref, p["images"][n], p["R"][n], p["T"][n], p["f"][n], p["c"][n], p["input_idx"],
-                             p["target_idx"])
-    lat = reference.ddim_sample(ref, prep, p["init_noise"][n], p["step_noise"][n], p["jitter_noise"][n],
-                                inf["cfg_scale"], inf["steps"], inf["eta"])
-    # in chunks of 8 views, as the program's decode_latents_chunked, bounding the activations
-    dec = lambda z: torch.cat([reference.decode(ref, c) for c in torch.split(z, 8)])
-    out = dict(pred_rgb=dec(lat[..., :4]), pred_depth=torch.clamp((lat[..., 4:] + 1.0) / 2.0, 0.0, 1.0))
-    if decode_gt:
-        out["gt_rgb"] = dec(prep.batch_latents.permute(0, 2, 3, 1)[..., :4])
-    return out
-
-
-def gaps(got: dict, want: dict) -> dict:
+def gaps(arch, got: dict, want: dict) -> dict:
     """{name: worst view's RMS gap} for the outputs both sides have; `got`
     holds one scene's outputs (B, ...)."""
-    return {k: view_rms(got[v], want[v]) for k, v in OUTPUTS.items() if v in got and v in want}
+    return {k: view_rms(got[v], want[v]) for k, v in arch.OUTPUTS.items() if v in got and v in want}
 
 
 def worst(readings: list) -> dict:

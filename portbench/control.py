@@ -1,8 +1,8 @@
 """The readings that a cell's limits are set from, at the cell's own size:
 the program's numbers over a dozen seeds or more, and the control's, the
-reference computed in float8 (reference.fake_quantize_) in the program's
-place, on three or more. One process reads every seed: the program's model
-is built once and each seed's weights loaded into it.
+reference computed in float8 (check.reference_model's fp8) in the
+program's place, on three or more. One process reads every seed: the
+program's model is built once and each seed's weights loaded into it.
 
     python -m portbench.control --workload gso15-b2 --seeds 101-112 \
         --control-seeds 201-203 --out control_gso15.json
@@ -25,7 +25,7 @@ import time
 
 import torch
 
-from portbench import cells, check, program, traffic, weights
+from portbench import cells, check, weights
 
 
 def parse_seeds(text: str) -> list:
@@ -37,33 +37,34 @@ def parse_seeds(text: str) -> list:
 
 
 def readings(cell, seeds: list, control_seeds: list, device, log=print) -> dict:
-    m, inf = cell.config["model"], cell.config["inference"]
+    arch, m, inf = cell.arch, cell.config["model"], cell.config["inference"]
     N, gt = cell.traffic["scenes_per_pass"], cell.traffic["decodes_ground_truth"]
-    entry = program.ENTRIES[cell.traffic["entry"]]
+    entry = arch.ENTRIES[cell.traffic["entry"]]
     limits = cell.spec["limits"]
     out = dict(program={}, control={}, correct=dict(program={}, control={}), seconds={})
     model = None
     for seed in sorted(set(seeds) | set(control_seeds)):
-        state = weights.make_state(m, seed, device)
-        p = traffic.make_pass(m, inf, N, seed, 0, device)
+        state = weights.make_state(arch, m, seed, device)
+        p = arch.make_pass(m, inf, N, seed, 0, device)
         picks = [n for _, n in check.sample_scenes(cell, seed, 1)]
         t0 = time.perf_counter()
         if seed in seeds:
-            model = program.build(m, state, device) if model is None else program.reload(model, state)
+            model = arch.build(m, state, device) if model is None else arch.reload(model, state)
             got = entry(model, p, inf, [])
         t1 = time.perf_counter()
-        ref = check.reference_model(m, state, device)
-        want = {n: check.reference_scene(ref, inf, p, n, gt) for n in picks}
+        ref = check.reference_model(arch, m, state, device)
+        want = {n: check.reference_scene(arch, ref, inf, p, n, gt) for n in picks}
         del ref
         if seed in seeds:
-            out["program"][seed] = check.worst([check.gaps({k: v[n] for k, v in got.items()}, want[n])
+            out["program"][seed] = check.worst([check.gaps(arch, {k: v[n] for k, v in got.items()}, want[n])
                                                 for n in picks])
             out["correct"]["program"][seed] = check.verdict(out["program"][seed], limits)[0]
             del got
         t2 = time.perf_counter()
         if seed in control_seeds:
-            ctl = check.reference_model(m, state, device, fp8=True)
-            out["control"][seed] = check.worst([check.gaps(check.reference_scene(ctl, inf, p, n, gt), want[n])
+            ctl = check.reference_model(arch, m, state, device, fp8=True)
+            out["control"][seed] = check.worst([check.gaps(arch, check.reference_scene(arch, ctl, inf, p, n, gt),
+                                                           want[n])
                                                 for n in picks])
             out["correct"]["control"][seed] = check.verdict(out["control"][seed], limits)[0]
             del ctl

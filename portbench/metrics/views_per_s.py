@@ -3,5 +3,5 @@ the window over the seconds from the window's start to the last completion."""
 
 
 def read(run):
-    views = len(run.passes) * run.scenes_per_pass * run.targets
+    views = len(run.passes) * run.scenes_per_pass * run.views
     return views / run.window_s

@@ -3,10 +3,10 @@ mvdfusion_tpu_torch/utils/trace.py: `sample.pass`, `sample.step`,
 `model.gridattn`, `model.unet`), for the readers of host_step_ms,
 device_step_ms, own_launches_per_step, host_unet_ms and host_gridattn_ms.
 
-The module is looked up in sys.modules, never imported: program.py stays
-the benchmark's one module that imports the port, and a program that never
-loaded such a module (one without it) gives None, which leaves the metric
-out. The window's passes are the last len(run.passes) sampler passes
+The module is looked up in sys.modules, never imported: program.py and
+portbench/archs/ stay the benchmark's only modules that import the port,
+and a program that never loaded such a module (one without it) gives None,
+which leaves the metric out. The window's passes are the last len(run.passes) sampler passes
 recorded with no profiler running: the warm-up pass came before them, the
 profiled pass ran under the profiler. Each entry runs one sampler pass a
 served pass.

@@ -10,14 +10,14 @@ kernel: every product is an nn.Linear, nn.Conv2d or a plain matmul, every
 attention an explicit softmax. Modules are NCHW; the pipeline functions at
 the bottom take and return NHWC tensors as the program's entries do.
 
-`fake_quantize_` turns a built reference into the control: every Linear and
-Conv2d computes on weights and inputs rounded to float8 e4m3 with a
-per-tensor scale, the precision below the configuration's bfloat16.
+`precision.fake_quantize_` turns a built reference into the control: every
+Linear and Conv2d, and CLIP's packed in-projection by its own
+`fake_quantize_`, computes on weights and inputs rounded to float8 e4m3
+with a per-tensor scale, the precision below the configuration's bfloat16.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -26,20 +26,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from portbench.precision import fp8, fp8_input
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-@contextlib.contextmanager
-def float32_products():
-    """Products in true float32 inside the block: no TF32 in matmuls or
-    cuDNN convolutions (the program's own settings are restored after)."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def attention(q, k, v):
@@ -581,6 +571,12 @@ class CLIPAttention(nn.Module):
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         return self.out_proj(attention(q, k, v).transpose(1, 2).reshape(B, N, C))
 
+    def fake_quantize_(self):
+        """The fp8 control's rounding of the packed in-projection (out_proj
+        is a Linear, which precision.fake_quantize_ rounds itself)."""
+        self.in_proj_weight.copy_(fp8(self.in_proj_weight))
+        self.register_forward_pre_hook(fp8_input)
+
 
 class CLIPResblock(nn.Module):
     def __init__(self, width, heads):
@@ -652,33 +648,6 @@ class ViewFusion(nn.Module):
     @property
     def unet(self):
         return self.unet_model.unet_model
-
-
-def norm_scale_names(model: nn.Module) -> set:
-    """State-dict names of the GroupNorm and LayerNorm scales."""
-    return {f"{n}.weight" for n, mod in model.named_modules()
-            if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) and mod.weight is not None}
-
-
-# ------------------------------------------------------------- fp8 control
-def _fp8(x):
-    """Round to float8 e4m3 under a per-tensor scale that maps max|x| to 448."""
-    s = 448.0 / x.abs().amax().clamp(min=1e-12)
-    return (x * s).to(torch.float8_e4m3fn).to(x.dtype) / s
-
-
-def fake_quantize_(model: nn.Module) -> nn.Module:
-    """Every Linear and Conv2d computes on fp8-rounded weights and inputs
-    (CLIP's packed in-projection too); the rest stays in float32."""
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                mod.weight.copy_(_fp8(mod.weight))
-                mod.register_forward_pre_hook(lambda _m, args: (_fp8(args[0]), *args[1:]))
-            elif isinstance(mod, CLIPAttention):
-                mod.in_proj_weight.copy_(_fp8(mod.in_proj_weight))
-                mod.register_forward_pre_hook(lambda _m, args: (_fp8(args[0]), *args[1:]))
-    return model
 
 
 # -------------------------------------------------------------------- pipeline

@@ -2,9 +2,10 @@
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up builds the port's model at the cell's configuration with weights
-drawn on the card from the seed, and serves one warm-up pass of the cell's
-traffic (other values, the same shapes). The window then serves passes
+Set-up builds the port's model of the cell's architecture
+(portbench/archs/<arch>.py) at its configuration with weights drawn on the
+card from the seed, and serves one warm-up pass of the cell's traffic
+(other values, the same shapes). The window then serves passes
 back to back, a closed loop, until `--seconds` have passed; the pass
 running at that moment finishes and counts. With --trace 1 the window is
 followed by one profiled pass, whose trace the per-layer readers read.
@@ -29,10 +30,9 @@ from types import SimpleNamespace  # noqa: E402
 
 import torch  # noqa: E402
 
-from portbench import cells, check, program, trace, traffic, weights  # noqa: E402
+from portbench import cells, check, program, trace, weights  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mvdfusion_tpu")
-TRACE_DIR = cells.ROOT / ".portbench"
 
 
 def log(msg: str) -> None:
@@ -66,21 +66,23 @@ def serve(model, marks, cell, seed: int, index: int, device, purpose=weights.PAS
     """One pass of the cell's traffic through its entry; returns its
     outputs and timings."""
     inf = cell.config["inference"]
-    p = traffic.make_pass(cell.config["model"], inf, cell.traffic["scenes_per_pass"], seed, index, device, purpose)
+    p = cell.arch.make_pass(cell.config["model"], inf, cell.traffic["scenes_per_pass"], seed, index, device, purpose)
     timings = []
     marks.begin_pass()
-    out = program.ENTRIES[cell.traffic["entry"]](model, p, inf, timings)
+    out = cell.arch.ENTRIES[cell.traffic["entry"]](model, p, inf, timings)
     marks.end_pass()
     return dict(outputs=out, timings=timings[0])
 
 
 def profile_pass(model, marks, cell, seed: int, device) -> dict:
     """One pass under torch.profiler with the spans on; the trace's
-    summary (trace.summarize) and the pass's host seconds."""
+    summary (trace.summarize) and the pass's host seconds. The trace is
+    written under the cell's root, in .portbench/, while it is read."""
     from torch.profiler import ProfilerActivity, profile
 
-    TRACE_DIR.mkdir(exist_ok=True)
-    path = TRACE_DIR / "trace.json"
+    trace_dir = cell.root / ".portbench"
+    trace_dir.mkdir(exist_ok=True)
+    path = trace_dir / "trace.json"
     marks.spans = True
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.device(device).type == "cuda" else [])
     _sync(device)
@@ -96,20 +98,20 @@ def profile_pass(model, marks, cell, seed: int, device) -> dict:
         out = trace.summarize(str(path))
     finally:
         path.unlink()
-    out.update(wall_s=wall, passes=1, steps=out.get("span_calls", {}).get("step", 0))
+    out.update(wall_s=wall, passes=1, steps=out.get("span_calls", {}).get(trace.STEP, 0))
     return out
 
 
 def run(cell, seed: int, seconds: float, traced: bool, device="cuda", t0: float = T0) -> dict:
     """One run of `cell`; returns the result's fields and the rows compared."""
-    m, inf = cell.config["model"], cell.config["inference"]
-    N, B = cell.traffic["scenes_per_pass"], len(inf["targets"])
+    arch, m, inf = cell.arch, cell.config["model"], cell.config["inference"]
+    N = cell.traffic["scenes_per_pass"]
     # ---- set-up: the kernels (built in a checkout's first run), the model
     # from the seed, one warm-up pass of every shape
     built_s = program.build_kernels(device)
-    model = program.build(m, weights.make_state(m, seed, device), device)
+    model = arch.build(m, weights.make_state(arch, m, seed, device), device)
     gc.collect()
-    marks = trace.Marks(model, device)
+    marks = trace.Marks(arch.modules(model), device)
     serve(model, marks, cell, seed, 0, device, purpose=weights.WARMUP)
     marks.passes.clear()
     _sync(device)
@@ -132,8 +134,8 @@ def run(cell, seed: int, seconds: float, traced: bool, device="cuda", t0: float 
     failed = sum(int(not all(bool(torch.isfinite(v[n]).all()) for v in p["outputs"].values()))
                  for p in passes for n in range(N))
     run_info = SimpleNamespace(
-        cell=cell, setup_s=setup_s, window_s=passes[-1]["end_s"], passes=passes, scenes_per_pass=N, targets=B,
-        step_ms=step_ms, window_peak_bytes=window_peak, trace=None,
+        cell=cell, setup_s=setup_s, window_s=passes[-1]["end_s"], passes=passes, scenes_per_pass=N,
+        views=arch.views(inf), step_ms=step_ms, window_peak_bytes=window_peak, trace=None,
     )
     if traced:
         run_info.trace = profile_pass(model, marks, cell, seed, device)
@@ -148,15 +150,15 @@ def run(cell, seed: int, seconds: float, traced: bool, device="cuda", t0: float 
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    state = weights.make_state(m, seed, device)
-    ref = check.reference_model(m, state, device)
+    state = weights.make_state(arch, m, seed, device)
+    ref = check.reference_model(arch, m, state, device)
     del state
     gt = cell.traffic["decodes_ground_truth"]
     readings = []
     for k, n in picks:
-        p = traffic.make_pass(m, inf, N, seed, k, device)
-        want = check.reference_scene(ref, inf, p, n, gt)
-        readings.append(check.gaps({key: v[n] for key, v in kept[k].items()}, want))
+        p = arch.make_pass(m, inf, N, seed, k, device)
+        want = check.reference_scene(arch, ref, inf, p, n, gt)
+        readings.append(check.gaps(arch, {key: v[n] for key, v in kept[k].items()}, want))
     numbers = check.worst(readings)
     correct, rows = check.verdict(numbers, cell.spec["limits"])
     ends = [0.0] + [p["end_s"] for p in passes]

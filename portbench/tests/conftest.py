@@ -26,21 +26,37 @@ TINY_MODEL = dict(latent_size=16, viewattn_hidden=32, viewattn_layers=2, viewatt
 TINY_LIMITS = {"rgb": 1e-3, "depth": 1e-3, "vae": 1e-3}
 
 
-def make_root(dst: Path) -> Path:
-    """dst holds BENCHMARK.json and portbench/{configs,traffic,workloads,metrics}
-    for the cells tiny-eval (eval_scenes, 2 scenes a pass) and tiny-serve
-    (requests, 2 scenes a pass)."""
-    from portbench import counts
+TINY_CELLS = {"gso15-b2": "tiny-eval", "view8-b4": "tiny-serve"}
 
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+
+def tiny_config(name: str = "mvdfusion-gso15") -> dict:
+    """A configuration of the repo's, cut to the tiny sizes (its counts as
+    they were)."""
+    cfg = json.loads((REPO / "portbench" / "configs" / f"{name}.json").read_text())
+    cfg["model"].update(TINY_MODEL)
+    cfg["inference"].update(views=5, targets=[1, 2, 3, 4], image_size=64, steps=4)
+    return cfg
+
+
+def make_root(dst: Path, bench: dict | None = None) -> Path:
+    """dst holds BENCHMARK.json and portbench/{configs,traffic,workloads,
+    metrics,archs} for the cells tiny-eval (eval_scenes, 2 scenes a pass) and
+    tiny-serve (requests, 2 scenes a pass), each reporting the metrics that
+    gso15-b2 and view8-b4 report. `bench` is the BENCHMARK.json read (the
+    repo's by default); a metric's `workloads` keeps the names of cells
+    other than those two as they stand."""
+    from portbench import cells
+
+    if bench is None:
+        bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    bench = json.loads(json.dumps(bench))
     pb = dst / "portbench"
     for d in ("configs", "traffic", "workloads"):
         (pb / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "portbench" / "metrics", pb / "metrics", ignore=shutil.ignore_patterns("__pycache__"))
-    cfg = json.loads((REPO / "portbench" / "configs" / "mvdfusion-gso15.json").read_text())
-    cfg["model"].update(TINY_MODEL)
-    cfg["inference"].update(views=5, targets=[1, 2, 3, 4], image_size=64, steps=4)
-    cfg["counts"] = counts.count(cfg)
+    for d in ("metrics", "archs"):
+        shutil.copytree(REPO / "portbench" / d, pb / d, ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = tiny_config()
+    cfg["counts"] = cells.arch_of(cfg).count(cfg)
     (pb / "configs" / "tiny.json").write_text(json.dumps(cfg))
     for name, src in (("eval-b2", "eval-b2"), ("serve-b2", "serve-b4")):
         t = json.loads((REPO / "portbench" / "traffic" / f"{src}.json").read_text())
@@ -50,6 +66,9 @@ def make_root(dst: Path) -> Path:
         limits = {k: TINY_LIMITS[k] for k in keys}
         (pb / "workloads" / f"{cell}.json").write_text(json.dumps({"sample": {"scenes": 2}, "limits": limits}))
     bench["configs"] = [dict(bench["configs"][0], name="tiny", file="portbench/configs/tiny.json")]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = [TINY_CELLS.get(w, w) for w in m["workloads"]]
     bench["workloads"] = [
         dict(name="tiny-eval", config="tiny", traffic="eval-b2", chips=1, why="CPU test"),
         dict(name="tiny-serve", config="tiny", traffic="serve-b2", chips=1, why="CPU test"),

@@ -9,7 +9,7 @@ import pytest
 
 from conftest import REPO
 
-from portbench import cells, counts, yardstick
+from portbench import cells, yardstick
 
 
 def gridattn_hand(m, B, ls):
@@ -35,7 +35,7 @@ def gridattn_hand(m, B, ls):
 def test_gridattn_by_hand(tiny_root):
     cell = cells.load("tiny-eval", root=tiny_root)
     m, inf = cell.config["model"], cell.config["inference"]
-    assert counts.count(cell.config)["gridattn"]["flops"] == gridattn_hand(m, len(inf["targets"]), m["latent_size"])
+    assert cell.arch.count(cell.config)["gridattn"]["flops"] == gridattn_hand(m, len(inf["targets"]), m["latent_size"])
 
 
 def test_decode_params_and_pass(tiny_root):
@@ -47,7 +47,7 @@ def test_decode_params_and_pass(tiny_root):
     B, S = len(inf["targets"]), inf["steps"]
     scene = (1 + B) * c["encode_image"]["flops"] + c["clip_image"]["flops"] + S * c["step"]["flops"] \
         + 2 * B * c["decode_view"]["flops"]
-    assert yardstick.pass_flops(cell) == 2 * scene
+    assert cell.arch.pass_flops(cell) == 2 * scene
     # bytes: parameters once a call, activations a scene
     u = c["unet"]
     assert yardstick.call_bound_s(cell, "unet", 3) == max(3 * u["flops"] / yardstick.PEAK_BF16_FLOPS,
@@ -57,5 +57,6 @@ def test_decode_params_and_pass(tiny_root):
 @pytest.mark.parametrize("config", ["mvdfusion-gso15", "mvdfusion-view8"])
 def test_stored_counts_are_fresh(config):
     cfg = json.loads((REPO / "portbench" / "configs" / f"{config}.json").read_text())
-    assert cfg["counts"] == counts.count(cfg)
-    assert cfg["counted"] == counts.HOW
+    arch = cells.arch_of(cfg)
+    assert cfg["counts"] == arch.count(cfg)
+    assert cfg["counted"] == arch.COUNTED

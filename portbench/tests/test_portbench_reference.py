@@ -45,14 +45,35 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_fake_quantize_rounds_to_float8():
-    from portbench import reference
+    from portbench import precision
 
     lin = torch.nn.Linear(64, 8)
     w = lin.weight.detach().clone()
-    reference.fake_quantize_(lin)
+    precision.fake_quantize_(lin)
     s = 448.0 / w.abs().max()
     assert torch.equal(lin.weight, (w * s).to(torch.float8_e4m3fn).float() / s)
     x = torch.randn(3, 64)
     xs = 448.0 / x.abs().max()
     want = torch.nn.functional.linear((x * xs).to(torch.float8_e4m3fn).float() / xs, lin.weight, lin.bias)
     assert torch.allclose(lin(x), want)
+
+
+def test_fake_quantize_rounds_packed_clip_projection():
+    """The control reaches CLIP's packed in-projection through the
+    reference module's own fake_quantize_, inside a larger model."""
+    from portbench import precision, reference
+
+    torch.manual_seed(0)
+    attn = reference.CLIPAttention(64, 2)
+    torch.nn.init.normal_(attn.in_proj_weight)
+    torch.nn.init.normal_(attn.in_proj_bias)
+    w = attn.in_proj_weight.detach().clone()
+    x = torch.randn(2, 5, 64)
+    want = attn.out_proj.weight.detach().clone()
+    model = torch.nn.Sequential(torch.nn.Identity(), attn)
+    before = model(x)
+    precision.fake_quantize_(model)
+    s = 448.0 / w.abs().max()
+    assert torch.equal(attn.in_proj_weight, (w * s).to(torch.float8_e4m3fn).float() / s)
+    assert not torch.equal(attn.out_proj.weight, want)
+    assert not torch.allclose(model(x), before, atol=1e-4)

@@ -1,19 +1,21 @@
 """The benchmark's own marks on the program: CUDA events at each sampler
 step, and record_function spans around the layers' calls in a traced pass,
-both from forward hooks on the program's modules (program.modules); and
-the reduction of a torch.profiler trace to kernel time by span.
+both from forward hooks on the modules the architecture names
+(`modules(model)` in portbench/archs/<arch>.py); and the reduction of a
+torch.profiler trace to kernel time by span.
 
-Steps. A step starts at the first GridAttn call after the UNet has run
-(or after the pass began) and ends where the next starts, or at the first
-VAE decoder call after it (the end of sampling). Each start and end is a
-CUDA event on the current stream, read once after the window, never
-synchronised inside it.
+Steps. A step starts at the first call of the `step` module after the
+`unet` module has returned (or after the pass began) and ends where the
+next starts, or at the first `vae_decode` call after it (the end of
+sampling). Each start and end is a CUDA event on the current stream, read
+once after the window, never synchronised inside it.
 
 Spans. In a traced pass the hooks open "portbench.<name>" around each call
-of the modules program.modules names, and "portbench.step" around each
-step. `summarize` attributes every kernel to the spans that were open on
-the host when it was launched (the launch's correlation id), and labels
-each gap between device operations by what the host was running then.
+of every named module but `step`, and "portbench.step" around each step.
+`summarize` attributes every kernel to the spans that were open on the
+host when it was launched (the launch's correlation id), and labels each
+gap between device operations by what the host was running then: the spans
+open at its start, outermost first, and the innermost host operation.
 """
 
 from __future__ import annotations
@@ -25,18 +27,19 @@ import time
 
 import torch
 
-from portbench import program
-
 PREFIX = "portbench."
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+STEP = "step"
 
 
 class Marks:
     """Forward hooks on the program's modules: step events always, spans
     while `spans` is set."""
 
-    def __init__(self, model, device):
+    def __init__(self, mods: dict, device):
+        """`mods`: the architecture's modules(model), which name `step`,
+        `unet` and `vae_decode`."""
         self.cuda = torch.device(device).type == "cuda"
         self.passes = []  # per pass: [(kind, stamp)], kind "start" or "end"
         self.want_step = False
@@ -44,12 +47,13 @@ class Marks:
         self.spans = False
         self._open = {}
         self._handles = []
-        mods = program.modules(model)
         # the step's hooks first, so that a step's span closes before the next call's opens
-        self._handles.append(mods["gridattn"].register_forward_pre_hook(self._gridattn))
+        self._handles.append(mods[STEP].register_forward_pre_hook(self._step_start))
         self._handles.append(mods["unet"].register_forward_hook(self._unet_done))
         self._handles.append(mods["vae_decode"].register_forward_pre_hook(self._decode))
         for name, mod in mods.items():
+            if name == STEP:
+                continue
             self._handles.append(mod.register_forward_pre_hook(self._enter(name)))
             self._handles.append(mod.register_forward_hook(self._exit(name)))
 
@@ -88,16 +92,16 @@ class Marks:
     def _close_step(self):
         if self.open_step:
             if self.spans:
-                self._span("step", False)
+                self._span(STEP, False)
             self.passes[-1].append(("end", self._stamp()))
             self.open_step = False
 
-    def _gridattn(self, _m, _args):
+    def _step_start(self, _m, _args):
         if self.want_step:
             self._close_step()
             self.want_step = False
             if self.spans:
-                self._span("step", True)
+                self._span(STEP, True)
             self.passes[-1].append(("start", self._stamp()))
             self.open_step = True
 
@@ -133,10 +137,15 @@ def _intervals(events):
     return [a for a, _ in iv], iv
 
 
-def _inside(index, t):
+def _around(index, t):
+    """The interval of `index` that holds instant t, or None."""
     starts, iv = index
     i = bisect.bisect_right(starts, t) - 1
-    return i >= 0 and iv[i][0] <= t <= iv[i][1]
+    return iv[i] if i >= 0 and iv[i][0] <= t <= iv[i][1] else None
+
+
+def _inside(index, t):
+    return _around(index, t) is not None
 
 
 def summarize(path: str) -> dict:
@@ -178,8 +187,8 @@ def summarize(path: str) -> dict:
     cpu_starts = [c[0] for c in cpu]
     gaps = collections.Counter()
     for (_, b), (a, _) in zip(merged, merged[1:]):
-        label = "/".join(n for n in ("pass", "step", "gridattn", "unet", "vae_encode", "clip", "vae_decode")
-                         if n in index and _inside(index[n], b)) or "outside"
+        around = sorted((iv[0], -iv[1], n) for n, ix in index.items() for iv in [_around(ix, b)] if iv)
+        label = "/".join(n for _, _, n in around) or "outside"
         i = bisect.bisect_right(cpu_starts, b) - 1
         for j in range(i, max(i - 64, -1), -1):
             if cpu[j][1] >= b:

@@ -1,7 +1,8 @@
-"""The one traffic generator: a pass's scenes, made on the device from the
-run's seed and the pass's index.
+"""The camera rigs the architectures' traffic generators share.
 
-A configuration's `inference` section fixes the rig, the views, the image
+A pass's scenes are made on the device from the run's seed and the pass's
+index by its architecture's `make_pass` (portbench/archs/<arch>.py). A
+configuration's `inference` section fixes the rig, the views, the image
 size and the sampler; a traffic file (portbench/traffic/<name>.json) fixes
 the scenes a pass and the entry that serves them. Every pass of every seed
 has the same sizes; the seed changes only the values: the images, the
@@ -11,9 +12,6 @@ noise, and on a ring rig each scene's azimuth offset.
 from __future__ import annotations
 
 import numpy as np
-import torch
-
-from portbench.weights import PASS, sub_seed
 
 
 def look_at(dist, elev_deg, azim_deg):
@@ -43,28 +41,3 @@ def rig(inf: dict, rng: np.random.Generator):
     R, T = look_at(inf["distance"], np.full(S, inf["elevation_deg"]), azim)
     f = np.full((S, 2), inf["focal_ndc"], np.float32)
     return R, T, f, np.zeros((S, 2), np.float32)
-
-
-def make_pass(model_cfg: dict, inf: dict, scenes: int, seed: int, index: int, device, purpose: int = PASS) -> dict:
-    """Pass `index` of a run: `scenes` scenes of `inf["views"]` random
-    images in [0, 1], the rig, the input and target indices, and the
-    sampler's noise: init (N, B, h, w, 5), step (N, S, B, h, w, 5) and
-    jitter (N, S, B, h, w, D)."""
-    s = sub_seed(seed, purpose, index)
-    rng = np.random.default_rng(s)
-    g = torch.Generator(device=device).manual_seed(s)
-    N, S, B = scenes, inf["views"], len(inf["targets"])
-    H = inf["image_size"]
-    ls, D, steps = model_cfg["latent_size"], model_cfg["n_pts_per_ray"], inf["steps"]
-    C = model_cfg["unet_out_channels"]
-    cams = [rig(inf, rng) for _ in range(N)]
-    on = lambda a: torch.as_tensor(np.stack(a), device=device)
-    randn = lambda *shape: torch.randn(shape, generator=g, device=device, dtype=torch.float32)
-    return dict(
-        images=torch.rand(N, S, H, H, 3, generator=g, device=device, dtype=torch.float32),
-        R=on([c[0] for c in cams]), T=on([c[1] for c in cams]), f=on([c[2] for c in cams]), c=on([c[3] for c in cams]),
-        input_idx=torch.tensor([inf["input"]], device=device),
-        target_idx=torch.tensor(inf["targets"], device=device),
-        init_noise=randn(N, B, ls, ls, C), step_noise=randn(N, steps, B, ls, ls, C),
-        jitter_noise=randn(N, steps, B, ls, ls, D),
-    )

@@ -1,18 +1,19 @@
 """Seeded weights and inputs, made on the device from one seed.
 
-`make_state` draws one state dict in the reference checkpoint's names from
-a torch.Generator on the device, in a few large draws, every value rounded
-to bfloat16 (the type the towers are served in) so that the program and the
-reference read the same numbers. `load_program` puts it into the program's
-model; the reference loads it with `load_state_dict` as it stands.
+`make_state` draws one state dict in the names of the architecture's
+reference (its `reference_class`) from a torch.Generator on the device, in
+a few large draws, every value rounded to bfloat16 (the type the towers are
+served in) so that the program and the reference read the same numbers.
+`load_program` puts it into the program's model; the reference loads it
+with `load_state_dict` as it stands. An architecture may give its own
+`fan_in` where the default does not fit it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from portbench import reference
+import torch.nn as nn
 
 CHUNK = 1 << 27  # elements a draw
 
@@ -26,12 +27,22 @@ def sub_seed(seed: int, *path: int) -> int:
 WEIGHTS, PASS, SAMPLE, WARMUP, TRACE = 1, 2, 3, 4, 5
 
 
-def state_spec(m: dict) -> list:
+def norm_scale_names(model: nn.Module) -> set:
+    """State-dict names of the GroupNorm and LayerNorm scales."""
+    return {f"{n}.weight" for n, mod in model.named_modules()
+            if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) and mod.weight is not None}
+
+
+def fan_in(name: str, shape: tuple) -> int:
+    return int(np.prod(shape[1:]))
+
+
+def state_spec(arch, m: dict) -> list:
     """[(name, shape, kind)] of the reference layout, kind "norm" (scale
     1 + N(0, 0.1^2)), "matrix" (N(0, 1 / fan_in)) or "small" (N(0, 0.02^2))."""
     with torch.device("meta"):
-        ref = reference.ViewFusion(m)
-    norms = reference.norm_scale_names(ref)
+        ref = arch.reference_class(m)
+    norms = norm_scale_names(ref)
     spec = []
     for name, p in ref.state_dict().items():
         if name in norms:
@@ -44,16 +55,12 @@ def state_spec(m: dict) -> list:
     return spec
 
 
-def fan_in(name: str, shape: tuple) -> int:
-    if name.endswith("visual.proj"):  # (width, output_dim), applied as x @ proj
-        return shape[0]
-    return int(np.prod(shape[1:]))
-
-
-def make_state(m: dict, seed: int, device) -> dict:
-    """The seeded state dict, bfloat16 tensors on `device`."""
+def make_state(arch, m: dict, seed: int, device) -> dict:
+    """The seeded state dict of the architecture `arch` at the model
+    configuration `m`, bfloat16 tensors on `device`."""
     g = torch.Generator(device=device).manual_seed(sub_seed(seed, WEIGHTS))
-    spec = state_spec(m)
+    spec = state_spec(arch, m)
+    fan = getattr(arch, "fan_in", fan_in)
     state, i = {}, 0
     while i < len(spec):
         j, n = i, 0
@@ -69,7 +76,7 @@ def make_state(m: dict, seed: int, device) -> dict:
             if kind == "norm":
                 v = 1.0 + 0.1 * r
             elif kind == "matrix":
-                v = r / fan_in(name, shape) ** 0.5
+                v = r / fan(name, shape) ** 0.5
             else:
                 v = 0.02 * r
             state[name] = v.to(torch.bfloat16)

@@ -26,16 +26,3 @@ def call_bound_s(cell, what: str, scenes: int, calls: int = 1) -> float:
     call."""
     c = counts(cell)[what]
     return calls * bound_s(scenes * c["flops"], c["param_bytes"] + scenes * c["act_bytes"])
-
-
-def pass_flops(cell) -> float:
-    """The semantic operations of one pass of the cell's traffic: for each
-    scene, prepare (the VAE encoder on the input and target images, CLIP
-    on the input), every sampler step, and the decodes (the targets, and
-    the ground truth where the entry decodes it)."""
-    c, inf = counts(cell), cell.config["inference"]
-    B = len(inf["targets"])
-    decodes = B * (2 if cell.traffic["decodes_ground_truth"] else 1)
-    scene = ((1 + B) * c["encode_image"]["flops"] + c["clip_image"]["flops"] + inf["steps"] * c["step"]["flops"]
-             + decodes * c["decode_view"]["flops"])
-    return cell.traffic["scenes_per_pass"] * scene
