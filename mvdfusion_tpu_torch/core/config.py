@@ -5,12 +5,14 @@ The same files drive both packages (configs/*.yaml, the reference's
 `ViewFusionConfig`, the trainer section (with the model's finetune flags)
 into one `TrainConfig`; the dataset section names a loader by the
 reference's dotted target or a native name. PyYAML is imported where a file
-is read.
+is read. `MVDreamConfig` holds the second architecture's sizes
+(nn/mvdream.py).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -22,6 +24,55 @@ def load_yaml(path: str) -> dict:
 
     with open(path) as fp:
         return yaml.safe_load(fp)
+
+
+@dataclasses.dataclass(frozen=True)
+class MVDreamConfig:
+    """MVDream's sizes (github.com/bytedance/MVDream,
+    mvdream/configs/sd-v2-base.yaml; scripts/t2i.py's --num_frames). Fields
+    take the yaml's key names: the model's params and unet_config's params
+    bare, first_stage_config's ddconfig and embed_dim behind `vae_`,
+    cond_stage_config's behind `text_` (OpenCLIP ViT-H/14's text tower,
+    read at its layer "penultimate": nn/clip.py::FrozenOpenCLIPEmbedder)."""
+
+    linear_start: float = 0.00085
+    linear_end: float = 0.0120
+    timesteps: int = 1000
+    scale_factor: float = 0.18215
+    image_size: int = 32  # the latent's side
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    num_res_blocks: int = 2
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_head_channels: int = 64
+    use_linear_in_transformer: bool = True
+    transformer_depth: int = 1
+    context_dim: int = 1024
+    camera_dim: int = 16
+    num_frames: int = 4
+    vae_embed_dim: int = 4
+    vae_z_channels: int = 4
+    vae_ch: int = 128
+    vae_ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    vae_num_res_blocks: int = 2
+    text_vocab_size: int = 49408
+    text_context_length: int = 77
+    text_width: int = 1024
+    text_layers: int = 24
+    text_heads: int = 16
+    # compute dtype of the towers (norms stay fp32)
+    dtype: Any = torch.bfloat16
+
+    def tiny(self) -> "MVDreamConfig":
+        """CPU test sizes: three UNet levels of 32-64 channels, 8-wide heads,
+        an 8x8 latent, a 3-layer text tower of width 64."""
+        return dataclasses.replace(
+            self, image_size=8, model_channels=32, channel_mult=(1, 2, 2), num_res_blocks=1, num_head_channels=8,
+            context_dim=64, vae_ch=32, vae_ch_mult=(1, 2), vae_num_res_blocks=1, text_vocab_size=1000,
+            text_width=64, text_layers=3, text_heads=2, dtype=torch.float32,
+        )
 
 
 # ---------------------------------------------------------------- datasets

@@ -133,13 +133,14 @@ def make_ddim_schedule(
 
 def ddim_step(ddim: DDIMSchedule, x_t, noise_pred, index: int, z):
     """x_prev = sqrt(abar_prev) x0 + sqrt(1 - abar_prev - sigma^2) eps + sigma z,
-    with no noise at index 0. Returns (x_prev, pred_x0)."""
+    with no noise at index 0 or where z is None (eta 0, every sigma 0).
+    Returns (x_prev, pred_x0)."""
     a_t = ddim.alphas[index]
     a_prev = ddim.alphas_prev[index]
     sigma_t = ddim.sigmas[index]
     pred_x0 = (x_t - ddim.sqrt_one_minus_alphas[index] * noise_pred) / torch.sqrt(a_t)
     dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t**2, min=1e-7)) * noise_pred
     x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
-    if index != 0:
+    if index != 0 and z is not None:
         x_prev = x_prev + sigma_t * z
     return x_prev, pred_x0

@@ -1,4 +1,5 @@
-"""OpenAI CLIP ViT-L/14 image tower (torch counterpart of mvdfusion_tpu/nn/clip.py).
+"""OpenAI CLIP ViT-L/14 image tower (torch counterpart of mvdfusion_tpu/nn/clip.py),
+and OpenCLIP ViT-H/14's text tower as MVDream conditions on it.
 
 Preprocessing reproduces the reference's quirk chain: bicubic align_corners
 resize to 224, then (x + 1) / 2 on [0, 1] input, then CLIP mean/std. The
@@ -11,6 +12,14 @@ Under tensor parallelism (parallel/mesh.py) the packed in_proj and c_fc are
 column layers, out_proj, c_proj and proj row layers, and the patch conv is
 split by its output features: a rank runs K2 on its own heads, its slice of
 the packed weight holding the same heads of q, of k and of v.
+
+The text tower (FrozenOpenCLIPEmbedder, layer "penultimate", as in
+ldm/modules/encoders/modules.py): token and positional embeddings, the
+same resblocks with a causal mask and exact-GELU MLPs, all but the last
+run, then ln_final; (B, 77) token ids -> (B, 77, width). Its causal
+attention takes the plain path (K2 is unmasked). Names follow open_clip's
+text model (token_embedding, positional_embedding,
+transformer.resblocks.{i}, ln_final).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ class CLIPAttention(nn.Module):
         self.out_proj = Linear(width, width)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x):
+    def forward(self, x, causal: bool = False):
         B, N, C = x.shape
         dh, heads = C // self.heads, self.heads
         s = split_of(self.in_proj_weight)
@@ -63,37 +72,45 @@ class CLIPAttention(nn.Module):
             else:
                 heads //= s.axis.size
         q, k, v = (a.reshape(B, N, heads, dh) for a in qkv.chunk(3, dim=-1))
-        return self.out_proj(dot_attention(q, k, v, dh**-0.5).reshape(B, N, heads * dh))
+        return self.out_proj(dot_attention(q, k, v, dh**-0.5, causal=causal).reshape(B, N, heads * dh))
 
 
 class _MLP(nn.Module):
-    def __init__(self, width: int):
+    """c_fc -> QuickGELU (OpenAI CLIP) or the exact GELU (`gelu`, open_clip's
+    nn.GELU) -> c_proj."""
+
+    def __init__(self, width: int, gelu: bool = False):
         super().__init__()
         self.c_fc = Linear(width, 4 * width)
         self.c_proj = Linear(4 * width, width)
+        self.gelu = gelu
 
     def forward(self, x):
         h = consumed(self.c_fc, self.c_proj, x)
-        return self.c_proj(h * torch.sigmoid(1.702 * h))  # QuickGELU
+        return self.c_proj(F.gelu(h) if self.gelu else h * torch.sigmoid(1.702 * h))
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    """Pre-LN block; `causal` masks each token's attention to itself and
+    the tokens before it; `gelu` as in _MLP."""
+
+    def __init__(self, width: int, heads: int, causal: bool = False, gelu: bool = False):
         super().__init__()
         self.attn = CLIPAttention(width, heads)
         self.ln_1 = LayerNormFp32(width)
-        self.mlp = _MLP(width)
+        self.mlp = _MLP(width, gelu)
         self.ln_2 = LayerNormFp32(width)
+        self.causal = causal
 
     def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
+        x = x + self.attn(self.ln_1(x), self.causal)
         return x + self.mlp(self.ln_2(x))
 
 
 class _Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, causal: bool = False, gelu: bool = False):
         super().__init__()
-        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads) for _ in range(layers)])
+        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads, causal, gelu) for _ in range(layers)])
 
 
 class VisionTransformer(nn.Module):
@@ -143,3 +160,28 @@ class FrozenCLIPImageEmbedder(nn.Module):
 
     def forward(self, images):
         return self.model.visual(clip_preprocess(images))[:, None, :]
+
+
+class _OpenCLIPText(nn.Module):
+    def __init__(self, vocab_size: int, context_length: int, width: int, layers: int, heads: int):
+        super().__init__()
+        self.token_embedding = nn.Embedding(vocab_size, width)
+        self.positional_embedding = nn.Parameter(torch.randn(context_length, width) * 0.01)
+        self.transformer = _Transformer(width, layers, heads, causal=True, gelu=True)
+        self.ln_final = LayerNormFp32(width)
+
+
+class FrozenOpenCLIPEmbedder(nn.Module):
+    """(B, context_length) token ids -> (B, context_length, width) at layer
+    "penultimate": the embeddings, every resblock but the last, ln_final."""
+
+    def __init__(self, vocab_size=49408, context_length=77, width=1024, layers=24, heads=16):
+        super().__init__()
+        self.model = _OpenCLIPText(vocab_size, context_length, width, layers, heads)
+
+    def forward(self, tokens):
+        m = self.model
+        h = m.token_embedding(tokens) + m.positional_embedding.to(m.token_embedding.weight.dtype)
+        for blk in m.transformer.resblocks[:-1]:
+            h = blk(h)
+        return m.ln_final(h)

@@ -177,12 +177,13 @@ class LayerNormFp32(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps).to(x.dtype)
 
 
-def dot_attention(q, k, v, scale: float):
+def dot_attention(q, k, v, scale: float, causal: bool = False):
     """(B, Nq, H, dh) multi-head attention with fp32 softmax; the large-token
-    sites go through the K2 kernel wrapper (ops/attention.py)."""
-    if should_fuse_attention(q, k):
+    sites go through the K2 kernel wrapper (ops/attention.py). K2 is
+    unmasked: a causal call takes the plain path."""
+    if not causal and should_fuse_attention(q, k):
         return fused_attention(q, k, v, scale)
-    return xla_attention(q, k, v, scale)
+    return xla_attention(q, k, v, scale, causal)
 
 
 class GEGLU(nn.Module):

@@ -20,6 +20,15 @@ blocks' boundaries.
 The up-path skip joins are concatenations: the reference's split-skip form
 computes the same function piece by piece for the TPU's layouts.
 
+The same UNet runs MVDream's MultiViewUNetModel (SD-2.1-base,
+mvdream/ldm/modules/diffusionmodules/openaimodel.py) under its options:
+heads of `num_head_channels` channels, Linear proj_in / proj_out
+(`use_linear_in_transformer`), no ViewAligned sites (`view_aligned`
+False), a camera MLP added to the time embedding (`camera_dim`), and
+attn1 over the `num_frames` views of a group joined into one sequence
+(BasicTransformerBlock3D; each call a `model.mvattn` span of
+utils/trace.py). Such sites have a 77-token attn2 and take the module path.
+
 Under tensor parallelism (parallel/mesh.py) the ResBlocks' convs and
 emb_layers, the time embedding and the C=1280 sites' attention and
 FeedForward run split (nn/layers.py); a split conv's output is gathered so
@@ -52,6 +61,7 @@ from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops.block import BlockWeights, block_route, prepared_site_weights, transformer_block
 from mvdfusion_tpu_torch.ops.image import area_downsample, nearest_upsample2x
 from mvdfusion_tpu_torch.parallel.tensor import full_param
+from mvdfusion_tpu_torch.utils.trace import span
 
 
 class ResBlock(nn.Module):
@@ -76,9 +86,12 @@ class ResBlock(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """Self-attention, cross-attention to the context, GEGLU FF."""
+    """Self-attention, cross-attention to the context, GEGLU FF. With
+    num_frames F > 1, attn1 attends over the F views of each group of F
+    consecutive batch rows joined into one sequence (MVDream's
+    BasicTransformerBlock3D); attn2 and the FF stay per view."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int, num_frames: int = 1):
         super().__init__()
         self.attn1 = CrossAttention(dim, heads, dim_head)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
@@ -86,10 +99,17 @@ class BasicTransformerBlock(nn.Module):
         self.norm1 = LayerNormFp32(dim)
         self.norm2 = LayerNormFp32(dim)
         self.norm3 = LayerNormFp32(dim)
+        self.num_frames = num_frames
 
     def forward(self, x, context):
         """x (B, N, C); context (B, M, Cc), or (B*N, D, Cc) per pixel."""
-        x = x + self.attn1(self.norm1(x))
+        frames = self.num_frames
+        if frames > 1:
+            B, N, C = x.shape
+            with span("model.mvattn"):
+                x = x + self.attn1(self.norm1(x).reshape(B // frames, frames * N, C)).reshape(B, N, C)
+        else:
+            x = x + self.attn1(self.norm1(x))
         q = self.norm2(x)
         if context.shape[0] != x.shape[0]:  # per-pixel frustum: fold N into batch
             B, N, C = x.shape
@@ -106,9 +126,10 @@ def _attn2_contribution(block: BasicTransformerBlock, ctx):
 
 
 def _site_form(blocks, one_key: bool, B: int, N: int, C: int, heads: int, fuse_mode: str):
-    """The kernel form of a site with one transformer block and a 1-key
-    attn2 context under fuse_mode "auto", or None for the module path."""
-    if fuse_mode == "never" or len(blocks) != 1 or not one_key:
+    """The kernel form of a site with one per-view transformer block and a
+    1-key attn2 context under fuse_mode "auto", or None for the module
+    path."""
+    if fuse_mode == "never" or len(blocks) != 1 or not one_key or blocks[0].num_frames != 1:
         return None
     return block_route(B, N, C, heads, blocks[0].ff.net[2].in_features)
 
@@ -147,18 +168,21 @@ def _kernel_site(module, x, a2, params, dt, form):
 
 
 class SpatialTransformer(nn.Module):
-    """GN(eps 1e-6) -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out + x."""
+    """GN(eps 1e-6) -> proj_in -> transformer blocks -> proj_out + x; the
+    projections 1x1 convs, or Linear layers where `use_linear`."""
 
-    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int):
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int, use_linear: bool = False,
+                 num_frames: int = 1):
         super().__init__()
         inner = heads * dim_head
+        proj = Linear if use_linear else Conv1x1
         self.heads = heads
         self.norm = GroupNorm32(ch, eps=1e-6)
-        self.proj_in = Conv1x1(ch, inner)
+        self.proj_in = proj(ch, inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)]
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, num_frames) for _ in range(depth)]
         )
-        self.proj_out = Conv1x1(inner, ch)
+        self.proj_out = proj(inner, ch)
 
     def forward(self, x, context, fuse_mode: str = "auto"):
         B, H, W, C = x.shape
@@ -241,7 +265,15 @@ def volume_pyramid(volume: torch.Tensor, num_levels: int) -> list:
 
 class UNetModel(nn.Module):
     """forward(x (B,H,W,Cin), t (B,), context (B,M,ctx), volume_levels,
-    fuse_mode, remat) -> (B, H, W, Cout) fp32."""
+    fuse_mode, remat, camera) -> (B, H, W, Cout) fp32.
+
+    The defaults build MVD-Fusion's UNet. `num_head_channels` > 0 gives
+    each site ch // num_head_channels heads of that width (else num_heads
+    heads); `use_linear_in_transformer` Linear site projections;
+    `view_aligned` False leaves out the ViewAligned sites; `camera_dim`
+    adds camera_embed (Linear, SiLU, Linear) of a (B, camera_dim) camera
+    to the time embedding; `num_frames` joins that many consecutive views
+    in each site's attn1."""
 
     def __init__(
         self,
@@ -254,16 +286,26 @@ class UNetModel(nn.Module):
         num_heads: int = 8,
         transformer_depth: int = 1,
         context_dim: int = 768,
+        num_head_channels: int = -1,
+        use_linear_in_transformer: bool = False,
+        view_aligned: bool = True,
+        camera_dim: int | None = None,
+        num_frames: int = 1,
     ):
         super().__init__()
         mc = model_channels
         emb = mc * 4
         self.model_channels = mc
         self.time_embed = nn.ModuleList([Linear(mc, emb), nn.Identity(), Linear(emb, emb)])
+        if camera_dim is not None:
+            self.camera_embed = nn.ModuleList([Linear(camera_dim, emb), nn.Identity(), Linear(emb, emb)])
         attn = set(attention_resolutions)
 
         def site(cls, ch):
-            return cls(ch, num_heads, ch // num_heads, transformer_depth, context_dim)
+            heads = ch // num_head_channels if num_head_channels > 0 else num_heads
+            if cls is ViewAlignedFeatureTransformer:
+                return cls(ch, heads, ch // heads, transformer_depth, context_dim)
+            return cls(ch, heads, ch // heads, transformer_depth, context_dim, use_linear_in_transformer, num_frames)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
         chans = [mc]
@@ -280,27 +322,32 @@ class UNetModel(nn.Module):
                 self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
                 chans.append(ch)
                 ds *= 2
-        self.middle_block = nn.ModuleList(
-            [ResBlock(ch, ch, emb), site(SpatialTransformer, ch), site(ViewAlignedFeatureTransformer, ch),
-             ResBlock(ch, ch, emb)]
-        )
+        middle = [ResBlock(ch, ch, emb), site(SpatialTransformer, ch)]
+        if view_aligned:
+            middle.append(site(ViewAlignedFeatureTransformer, ch))
+        self.middle_block = nn.ModuleList(middle + [ResBlock(ch, ch, emb)])
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
                 layers = [ResBlock(ch + chans.pop(), mult * mc, emb)]
                 ch = mult * mc
                 if ds in attn:
-                    layers += [site(SpatialTransformer, ch), site(ViewAlignedFeatureTransformer, ch)]
+                    layers.append(site(SpatialTransformer, ch))
+                    if view_aligned:
+                        layers.append(site(ViewAlignedFeatureTransformer, ch))
                 if level and i == num_res_blocks:
                     layers.append(Upsample(ch))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.ModuleList([GroupNorm32(ch, act="silu"), nn.Identity(), Conv2d(ch, out_channels, 3, padding=1)])
 
-    def forward(self, x, t, context, volume_levels, fuse_mode: str = "auto", remat: bool = False):
+    def forward(self, x, t, context, volume_levels=(), fuse_mode: str = "auto", remat: bool = False, camera=None):
         dt = self.out[2].weight.dtype
         emb = consumed(self.time_embed[0], self.time_embed[2], timestep_embedding(t, self.model_channels))
         emb = self.time_embed[2](silu(emb))
+        if camera is not None:
+            cam = consumed(self.camera_embed[0], self.camera_embed[2], camera)
+            emb = emb + self.camera_embed[2](silu(cam))
         x = x.to(dt)
         context = context.to(dt)
         levels = {lv.shape[1]: lv.to(dt) for lv in volume_levels}

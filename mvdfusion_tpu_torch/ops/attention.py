@@ -72,11 +72,16 @@ def attention_plain(q, k, v, scale: float, mode: int | None = None):
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(dt)
 
 
-def xla_attention(q, k, v, scale: float):
+def xla_attention(q, k, v, scale: float, causal: bool = False):
     """The reference's module path outside the kernel's gate (nn/layers.py::
     dot_attention, XLA): logits as a product in the operands' dtype, fp32
-    softmax, probabilities cast to that dtype."""
+    softmax, probabilities cast to that dtype. `causal` masks key j > query
+    i out of query i's softmax."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        Nq, Nk = q.shape[1], k.shape[1]
+        later = torch.ones(Nq, Nk, dtype=torch.bool, device=q.device).triu(1)
+        logits = logits.masked_fill(later, float("-inf"))
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 

@@ -20,13 +20,19 @@ them after it.
 
 The spans of the port, one record each call:
 
-    sample.pass      pipeline/sampler.py::ddim_sample_scenes, opens the pass
+    sample.pass      pipeline/sampler.py::ddim_sample_scenes or
+                     ddim_sample_views, opens the pass
     sample.step      each step of its loop (the model, ddim_step, the clamp)
     model.gridattn   nn/viewfusion.py::_frustum's GridAttn call, N a step
     gridattn.capture inside model.gridattn: nn/viewattn.py::GridAttn.forward
                      captured its CUDA graph (the first call of a key)
     gridattn.replay  inside model.gridattn: it replayed one
-    model.unet       nn/viewfusion.py::_unet's UNet call, 1 a step
+    model.unet       nn/viewfusion.py::_unet's UNet call, or
+                     nn/mvdream.py::MVDream.apply_model_cfg's, 1 a step
+    model.mvattn     inside model.unet: a self-attention over a group's
+                     views joined (nn/unet.py::BasicTransformerBlock with
+                     num_frames > 1), one a site: 16 a step in MVDream
+    model.text       nn/mvdream.py::MVDream.encode_text's text tower call
 
 Training reaches the two model spans too, outside any pass and step. The
 ring keeps the last RING records; spans nest on the thread that runs the
