@@ -50,10 +50,13 @@ Phases, each printed with elapsed seconds as it starts and ends:
               bit-equal on a second launch, timed beside F.group_norm; with
               the sums a step weighted by GN_STEP. The sites' LayerNorm has
               rows at (16384, 320), (4096, 640) and K6's (1024, 1280), timed
-              beside F.layer_norm. K2 has three rows: CLIP, and
-              its tile inside K3 at the 32^2 and 16^2 sites (the rows'
-              launches: attention_site_n1024 and _n256, counted by K3's
-              launcher). K5 is held bit for bit to a second launch and
+              beside F.layer_norm. K2 has six rows: CLIP, its tile
+              inside K3 at the 32^2 and 16^2 sites (the rows' launches:
+              attention_site_n1024 and _n256, counted by K3's launcher),
+              and its wgmma tile (attention_sm90.cu) at MVDream's three
+              joined attn1 shapes, each timed beside the mma tile at the
+              same shape (the rows' launches: the mvdream phase's, by
+              joined key count). K5 is held bit for bit to a second launch and
               logged against K3 on the same inputs, by phase beside the
               standalone site GEMM at each product's shape, with its
               occupancy; K6's attention kernel has a row of its own (1 bf16
@@ -126,6 +129,14 @@ Phases, each printed with elapsed seconds as it starts and ends:
               that batch against their plain versions); logs s/scene, kernel
               launches a scene and peak memory of both (with --profile,
               the profiler's launches a step of STEPS steps of each)
+  9b. mvdream MVDream's main path (run_mvdream): nn/mvdream.py at
+              MVDreamConfig's sd-v2-base sizes, weights as built, one
+              ddim_sample_views step of 8 requests of 4 views (one UNet
+              call at CFG batch 64, mvdream4-b8's) after a warm-up step;
+              checks the latents' shape and finiteness and that K2's sm90
+              tile launched twice (the row max, the main pass) at each of
+              the 5 joined attn1 sites at 4096, 1024 and 256 keys, with no
+              call left on the mma tile
   10. loader  the native image loader (run_loader), where the host has the
               libjpeg, libpng and zlib headers (the device phase's probe
               logs g++, the headers and ldconfig's libraries), else only
@@ -249,6 +260,11 @@ VAE_LAUNCHES = {
 VAE_KERNELS = ("groupnorm", "groupnorm_tiled", "gn_fold_affine", "conv3x3", "attention")
 EVAL_TARGETS = 15  # configs/gso.yaml inference.train_batch_size
 SCENES = 2  # scenes of the scenes phase's one sampler pass
+# MVDream's UNet (MVDreamConfig, sd-v2-base): joined attn1 sites by their
+# keys over 4 views, 5 at each of the 32^2, 16^2 and 8^2 levels; the 4^2
+# middle site's 64 keys fall below K2's gate
+MVDREAM_SITES = {4096: 5, 1024: 5, 256: 5}
+MVDREAM_REQUESTS = 8  # requests of 4 views in the mvdream phase's step (mvdream4-b8's pass)
 # the flagship UNet's transformer sites per apply_model_cfg: 8 at 32^2 (C=320),
 # 8 at 16^2 (C=640), 8 at 8^2 (C=1280), 2 at the 4^2 middle (N=16, below
 # every gate)
@@ -590,6 +606,41 @@ def kernel_checks():
                           replaces="mvdfusion_tpu/ops/attention.py:172", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, library_ms=lib_ms,
                           shape=f"q/k/v ({B}, {N}, {H}, {dh}) bf16 ({what}, {form}), views of one packed qkv")
+
+    # K2's wgmma tile (csrc/attention_sm90.cu, attention_route "sm90") at
+    # MVDream's joined attn1 (4 views of a request joined; separate q/k/v as
+    # the attn1 projections give them; the pv form), held to 1 bf16 ulp and
+    # bit-equal repeats; timed beside the mma tile at the same shape
+    # (route="mma"), the plain version and SDPA (the yardstick only). The
+    # bound counts the attention's 4 Nq Nk dh flops; the tile's two sweeps
+    # over the keys do 1.5 times that on the tensor cores.
+    log(" K2 attention, the wgmma tile")
+    for name, (B, N, H, dh) in (("attention_sm90_n4096", (16, 4096, 5, 64)),
+                                ("attention_sm90_n1024", (16, 1024, 10, 64)),
+                                ("attention_sm90_n256", (16, 256, 20, 64))):
+        q, k, v = (rnd(B, N, H, dh, dt=bf) for _ in range(3))
+        check(K2.attention_route(q, k, v, dh**-0.5) == "sm90", f"{name}: attention_route does not take the wgmma tile")
+        got = K2.launch_attention(q, k, v, dh**-0.5)
+        err = compare_ulp(f"attention joined attn1 {(B, N, H, dh)} (pv, wgmma tile)", got,
+                          K2.attention_plain(q, k, v, dh**-0.5, K2.MODE_PV),
+                          "both round P and the output where the reference's pv form rounds", mean_tol=1e-4)
+        check(torch.equal(got, K2.launch_attention(q, k, v, dh**-0.5)), f"{name}: two runs differ")
+        ms = device_ms(lambda: K2.launch_attention(q, k, v, dh**-0.5), ITERS)
+        mma_ms = device_ms(lambda: K2.launch_attention(q, k, v, dh**-0.5, route="mma"), ITERS)
+        plain_ms = device_ms(lambda: K2.attention_plain(q, k, v, dh**-0.5, K2.MODE_PV), max(2, ITERS // 4))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=dh**-0.5), ITERS)
+        flops = 4 * B * H * N * N * dh
+        bms, by = bound(flops, nbytes(q, k, v, q))
+        log(f"  {name}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s ({1.5 * flops / ms / 1e9:.1f} on the tensor "
+            f"cores); mma tile {mma_ms:.4f} ms ({mma_ms / ms:.2f}x); plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} "
+            f"ms; bound {bms:.4f} ms ({by}), two sweeps {1.5 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+        check(ms < mma_ms, f"{name}: the wgmma tile ({ms:.4f} ms) is not faster than the mma tile ({mma_ms:.4f} ms)")
+        rows[name] = dict(name=name, route="cuda", source="mvdfusion_tpu_torch/csrc/attention_sm90.cu",
+                          replaces="mvdfusion_tpu/ops/attention.py:172", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms, mma_ms=mma_ms, phase="mvdream", launch_key=name,
+                          shape=f"q/k/v ({B}, {N}, {H}, {dh}) bf16 (MVDream's joined attn1, pv), separate buffers")
+        del q, k, v, qt, kt, vt, got
 
     # K3 transformer site: 32^2 C=320 (row attn2) and 16^2 C=640 (attn2 map)
     # at the eval path's CFG batch 30 and the flagship's 16 (timed)
@@ -2241,6 +2292,76 @@ def profile_scene_steps(model, scenes, steps: int) -> None:
         summarize_profile(prof, wall, steps, f"{n} scene(s) in one sampler pass", "step", top=8)
 
 
+# --------------------------------------------------------------- phase 9b
+def run_mvdream(card: str, device: str = "cuda", cfg=None) -> dict:
+    """MVDream's main path: nn/mvdream.py at `cfg` (MVDreamConfig's
+    sd-v2-base sizes by default) with the weights it is built with, cast
+    for inference; a warm-up step, then one ddim_sample_views step of
+    MVDREAM_REQUESTS requests with the counters at 0. Holds the latents'
+    shape and finiteness, and K2's launches to what MVDREAM_SITES implies:
+    two (the row max, then the main pass) under attention_sm90 for each
+    joined attn1 call, none under attention. Returns that step's launches
+    with attention_sm90's by the call's joined keys (attention_sm90_n<keys>,
+    which the kernels phase's sm90 rows read); `device`/`cfg` let it be
+    rehearsed on the CPU at the tiny config (launch counts are then 0)."""
+    import collections
+
+    import torch
+
+    from mvdfusion_tpu_torch.core.config import MVDreamConfig
+    from mvdfusion_tpu_torch.nn.mvdream import MVDream, get_camera
+    from mvdfusion_tpu_torch.nn.unet import BasicTransformerBlock
+    from mvdfusion_tpu_torch.ops import _lib
+    from mvdfusion_tpu_torch.pipeline.sampler import ddim_sample_views
+
+    dev = torch.device(device)
+    cfg = cfg or MVDreamConfig()
+    model = MVDream(cfg, device=dev).cast_for_inference().eval()
+    N, F, h = MVDREAM_REQUESTS, cfg.num_frames, cfg.image_size
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ctx = torch.randn(N + 1, cfg.text_context_length, cfg.context_dim, generator=g, device=dev).to(cfg.dtype)
+    cam = torch.stack([get_camera(F, 15.0, 45.0 * n) for n in range(N)]).to(dev)
+    noise = torch.randn(N, F, h, h, cfg.out_channels, generator=g, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    # attention_sm90's launches inside each joined attn1 call, by its keys
+    by_keys, before = collections.Counter(), []
+    sites = [b.attn1 for b in model.unet.modules() if isinstance(b, BasicTransformerBlock) and b.num_frames > 1]
+
+    def enter(mod, args):
+        before.append(_lib.LAUNCHES["attention_sm90"])
+
+    def leave(mod, args, out):
+        by_keys[f"attention_sm90_n{args[0].shape[1]}"] += _lib.LAUNCHES["attention_sm90"] - before.pop()
+
+    step = lambda: ddim_sample_views(model, ctx[1:], ctx[:1], cam, 10.0, num_steps=1, init_noise=noise).latents
+    with torch.no_grad():
+        step()
+        sync()
+        _lib.reset_launches()
+        hooks = [hk for a in sites for hk in (a.register_forward_pre_hook(enter), a.register_forward_hook(leave))]
+        t0 = time.perf_counter()
+        z = step()
+        sync()
+        secs = time.perf_counter() - t0
+        for hk in hooks:
+            hk.remove()
+    check(z.shape == noise.shape and bool(torch.isfinite(z).all()), f"mvdream: latents {tuple(z.shape)}, not finite")
+    counts = dict(_lib.counted())
+    del model
+    if dev.type != "cuda":
+        return counts
+    counts.update(by_keys)
+    want = {"attention_sm90": 2 * sum(MVDREAM_SITES.values()), "attention": 0,
+            **{f"attention_sm90_n{n}": 2 * sites_n for n, sites_n in MVDREAM_SITES.items()}}
+    log(f"  launch counts {counts}, implied {want}")
+    for k, n in want.items():
+        check(counts.get(k, 0) == n, f"{k}: {counts.get(k, 0)} launches, the path implies {n}")
+    log(f"  mvdream: one step of {N} requests of {F} views (CFG batch {2 * N * F}) {secs:.4f} s, {len(sites)} joined "
+        f"sites, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    return counts
+
+
 # ---------------------------------------------------------------- phase 10
 LOADER_HEADERS = ("jpeglib.h", "png.h", "zlib.h")  # what native/loader.cc includes, under /usr/include
 LOADER_STORED, LOADER_SIZE = 512, 256  # the renders' size and configs/train.yaml's image_size
@@ -3857,6 +3978,9 @@ def main() -> int:
     with Phase("scenes"):
         scenes_counts = run_scenes(args.eval_steps, card, model=model, profile=args.profile)["counts"]
 
+    with Phase("mvdream"):
+        mvdream_counts = run_mvdream(card)
+
     if missing_headers and not args.loader:
         log(f"phase loader: skipped, the host lacks /usr/include/{', '.join(missing_headers)} (--loader runs it)")
     else:
@@ -3890,7 +4014,8 @@ def main() -> int:
     phase_of = {"crossview_two_phase": eval_counts, "transformer_block_single": forms_counts,
                 "transformer_block_big": forms_counts, "big_attention": forms_counts, "groupnorm_tiled": vae_counts, "gn_fold_affine": vae_counts,
                 "conv3x3": vae_counts}
-    by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts, "scenes": scenes_counts}
+    by_phase = {"slice": counts, "eval": eval_counts, "forms": forms_counts, "scenes": scenes_counts,
+                "mvdream": mvdream_counts}
     for name, r in rows.items():
         if "launch_key" in r:
             r["launches"] = by_phase[r.pop("phase")].get(r.pop("launch_key"), 0)

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "mvdf_gn_apply": "pppp" + "iiiiiii" + "p",
     "mvdf_conv3x3": "pppppppp" + "iiiiiii" + "p",
     "mvdf_attention": "ppppiiiiillllllllfiip",
+    "mvdf_attention_sm90": "pppppiiiillllllllf" + "p",
     "mvdf_layernorm": "pppp" + "ii" + "f" + "i" + "p",
     "mvdf_gemm": "ppppipipiipiiiiiip",
     "mvdf_tma_desc": "piiip",

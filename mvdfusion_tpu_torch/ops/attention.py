@@ -16,9 +16,18 @@ The reference rounds in one of two forms, chosen from dh alone
   sites' kernels (ops/block.py) round this way too.
 The reference's A/B switches MVDF_ATTN_NORM and MVDF_ATTN_T pick Mosaic
 layouts and do not carry over; its transposed orientation computes ``pv``.
+
+Which kernel a call takes follows from its operands alone
+(`attention_route`): csrc/attention_sm90.cu's wgmma tile for bf16 ``pv``
+calls at dh = 64 with the scale dh^-0.5 (a power of two) over whole 128-row
+tiles (MVDream's joined attn1),
+csrc/attention.cu's mma.sync tile for the other bf16 calls at dh <= 128, and
+its CUDA-core loop for the rest. All three round as `attention_plain` does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +35,8 @@ from mvdfusion_tpu_torch.ops import _lib
 
 MODE_PROBS, MODE_PV = 0, 1  # the kernel's `mode` argument
 _SUBLANE = 8
+SM90_DH = 64  # the head dim of csrc/attention_sm90.cu
+SM90_TILE = 128  # its keys a stage; the route holds Nq to the same multiple
 
 
 def ones_free(dh: int) -> bool:
@@ -94,20 +105,66 @@ def _strides(t):
     return t.stride(0), t.stride(1)
 
 
-def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None):
-    """Launch csrc/attention.cu (no counting). q/k/v may be strided views of
-    one buffer; `out` (B, Nq, H, dh) contiguous is allocated if not given.
-    `mode` (default attention_mode(dh)) sets the tensor-core tile's
-    rounding; the fp32 loop keeps its probabilities in fp32."""
+def _tma_rows(t) -> bool:
+    """Whether TMA can read (B, N, H, dh) view `t` by rows: (H, dh)
+    contiguous, row and batch strides positive multiples of 16 bytes, the
+    base pointer 16-byte aligned."""
+    if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
+        return False
+    return all(s > 0 and s % 8 == 0 for s in (t.stride(0), t.stride(1))) and t.data_ptr() % 16 == 0
+
+
+def pow2_scale(scale: float) -> bool:
+    """Whether `scale` is a positive power of two: q * scale is then exact in
+    bf16, and csrc/attention_sm90.cu scales Q once in shared memory."""
+    return scale > 0 and math.frexp(scale)[0] == 0.5
+
+
+def attention_route(q, k, v, scale: float, mode: int | None = None) -> str:
+    """The kernel launch_attention takes for these operands: "sm90"
+    (csrc/attention_sm90.cu) for bf16 on the card in the pv form at dh 64
+    with a power-of-two scale (dh^-0.5 = 1/8), Nq and Nk multiples of
+    SM90_TILE with Nk >= 2 SM90_TILE, rows and base pointers on TMA's
+    16-byte rule; "mma" (attention.cu's tensor-core tile) for every other
+    bf16 call at dh <= 128; "fp32" (its CUDA-core loop) for fp32 operands
+    and larger heads. Decided from dtype, dh, mode, scale, the query and key
+    counts and alignment alone."""
+    dh = q.shape[-1]
+    if q.dtype != torch.bfloat16 or dh > 128:
+        return "fp32"
+    if dh != SM90_DH or (attention_mode(dh) if mode is None else mode) != MODE_PV or not pow2_scale(scale):
+        return "mma"
+    Nq, Nk = q.shape[1], k.shape[1]
+    whole = Nq % SM90_TILE == 0 and Nk % SM90_TILE == 0 and Nk >= 2 * SM90_TILE
+    on_card = all(t.device.type == "cuda" and t.dtype == q.dtype for t in (q, k, v))
+    return "sm90" if whole and on_card and all(_tma_rows(t) for t in (q, k, v)) else "mma"
+
+
+def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None, route: str | None = None):
+    """Launch K2 (no counting) on `route`: attention_route's choice (worked
+    out here if not given), or "mma" to take attention.cu's tile where the
+    route is "sm90" (chip_smoke.py times both). q/k/v may be strided views
+    of one buffer; `out` (B, Nq, H, dh) contiguous is allocated if not
+    given. `mode` (default attention_mode(dh)) sets the tensor-core tiles'
+    rounding; the fp32 loop keeps its probabilities in fp32. The sm90 tile
+    is two launches: the row max, then the softmax and PV."""
     _lib.no_graph("launch_attention", q, k, v)
     B, Nq, H, dh = q.shape
     Nk = k.shape[1]
     mode = attention_mode(dh) if mode is None else mode
+    route = route or attention_route(q, k, v, scale, mode)
+    if route == "sm90" and (q.dtype != torch.bfloat16 or dh != SM90_DH or mode != MODE_PV):
+        raise ValueError("csrc/attention_sm90.cu takes bf16 operands at dh 64 in the pv form")
     if out is None:
         out = torch.empty(B, Nq, H, dh, dtype=q.dtype, device=q.device)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("attention operands must share one dtype")
     (qb, qn), (kb, kn), (vb, vn) = _strides(q), _strides(k), _strides(v)
+    if route == "sm90":  # the entry point refuses counts, strides, pointers and scales off attention_route's rule
+        rowmax = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device)  # the max pass's scratch
+        _lib.call("mvdf_attention_sm90", _lib.view_ptr(q), _lib.view_ptr(k), _lib.view_ptr(v), out, rowmax, B, H, Nq,
+                  Nk, qb, qn, kb, kn, vb, vn, out.stride(0), out.stride(1), float(scale))
+        return out
     if q.dtype == torch.bfloat16 and dh <= 128:
         # the tensor-core tile (else the fp32 loop): 16-byte copies of K and
         # V rows, 4-byte reads of q and writes of out
@@ -122,11 +179,17 @@ def launch_attention(q, k, v, scale: float, mode: int | None = None, out=None):
 
 
 def fused_attention(q, k, v, scale: float):
-    """(B, Nq, H, dh) attention: the CUDA kernel where _lib.launches (its
-    gradient the plain version's), else the plain version."""
+    """(B, Nq, H, dh) attention: the CUDA kernel on attention_route's route
+    where _lib.launches (its gradient the plain version's), else the plain
+    version. Counts its launches: two under "attention_sm90" (the row max,
+    then the main pass) or one under "attention"."""
     if not _lib.launches(q):
         return attention_plain(q, k, v, scale)
-    out = _lib.with_plain_backward(lambda q, k, v: launch_attention(q, k, v, scale),
+    route = attention_route(q, k, v, scale)
+    out = _lib.with_plain_backward(lambda q, k, v: launch_attention(q, k, v, scale, route=route),
                                    lambda q, k, v: attention_plain(q, k, v, scale), q, k, v)
-    _lib.LAUNCHES["attention"] += 1
+    if route == "sm90":
+        _lib.LAUNCHES["attention_sm90"] += 2
+    else:
+        _lib.LAUNCHES["attention"] += 1
     return out

@@ -16,11 +16,13 @@ max|plain| and a mean of 3e-4 x max|plain|. TF32 is off for the plain
 versions.
 """
 
+import collections
 import math
 
 import pytest
 import torch
 
+from mvdfusion_tpu_torch.ops import _lib
 from mvdfusion_tpu_torch.ops import attention as K2
 from mvdfusion_tpu_torch.ops import block as K3
 from mvdfusion_tpu_torch.ops import conv3x3 as K8
@@ -91,6 +93,45 @@ def test_gpu_k2_tensor_core_tile_matches_plain(cuda, mode, dh):
         got = K2.launch_attention(q, k, v, dh**-0.5, mode)
         _close_ulp(got, K2.attention_plain(q, k, v, dh**-0.5, mode))
         assert torch.equal(got, K2.launch_attention(q, k, v, dh**-0.5, mode))
+
+
+K2_JOINED = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 256, 20, 64)]  # MVDream's attn1, 4 views joined
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "separate"])
+@pytest.mark.parametrize("shape", K2_JOINED, ids=lambda s: f"{s[1]}keys")
+def test_gpu_k2_sm90_tile_matches_plain_at_the_joined_shapes(cuda, shape, layout):
+    """The wgmma tile (attention_route "sm90") in the pv form at MVDream's
+    three joined attn1 shapes, q/k/v as strided views of one packed (B, N,
+    3, H, dh) buffer and as separate buffers: 1 bf16 ulp, a mean of 1e-4 x
+    max|plain|; two runs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    B, N, H, dh = shape
+    if layout == "packed":
+        qkv = _rand(g, cuda, torch.bfloat16, B, N, 3, H, dh)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (_rand(g, cuda, torch.bfloat16, B, N, H, dh) for _ in range(3))
+    assert K2.attention_route(q, k, v, dh**-0.5) == "sm90"
+    got = K2.launch_attention(q, k, v, dh**-0.5)
+    _close_ulp(got, K2.attention_plain(q, k, v, dh**-0.5, K2.MODE_PV))
+    assert torch.equal(got, K2.launch_attention(q, k, v, dh**-0.5))
+
+
+@pytest.mark.gpu
+def test_gpu_k2_launches_counted_by_route(cuda):
+    """fused_attention counts the joined shapes' two launches (the row max,
+    then the main pass) under attention_sm90, and CLIP's 257 ragged keys and
+    a 32^2 site's dh 40 under attention."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    cases = [(s, "attention_sm90", 2) for s in K2_JOINED] + [((1, 257, 16, 64), "attention", 1),
+                                                              ((2, 1024, 8, 40), "attention", 1)]
+    for shape, key, n in cases:
+        q, k, v = (_rand(g, cuda, torch.bfloat16, *shape) for _ in range(3))
+        before = _lib.counted()
+        K2.fused_attention(q, k, v, shape[-1] ** -0.5)
+        assert _lib.counted() - before == collections.Counter({key: n}), (shape, key)
 
 
 def _site_weights(g, dev, dt, C):

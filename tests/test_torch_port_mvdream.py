@@ -257,3 +257,15 @@ def test_default_unet_is_mvdfusions():
     assert sum(p.numel() for p in u.parameters()) == MVDF_UNET_PARAMS
     assert not hasattr(u, "camera_embed")
     assert all(b.num_frames == 1 for b in u.modules() if isinstance(b, BasicTransformerBlock))
+
+
+def test_chip_smoke_mvdream_rehearsal_on_cpu():
+    """chip_smoke.py's mvdream phase at the tiny config on the CPU: the same
+    control flow and checks as on the card, minus the launch counts."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.run_mvdream("cpu", device="cpu", cfg=MVDreamConfig().tiny()) == {}

@@ -260,7 +260,7 @@ def _cases(rnd):
     cases = [
         ("K2", lambda q, k, v: K2.fused_attention(q, k, v, 8**-0.5), lambda q, k, v: K2.attention_plain(q, k, v, 8**-0.5),
          [rnd(2, 64, 2, 8) for _ in range(3)],
-         [(K2, "launch_attention", standin(lambda q, k, v, s, mode=None, out=None: K2.attention_plain(q, k, v, s, mode)))]),
+         [(K2, "launch_attention", standin(lambda q, k, v, s, mode=None, out=None, route=None: K2.attention_plain(q, k, v, s, mode)))]),
         ("K1", gn("k1"), gnp(GN.group_norm_plain), gn_in,
          [(GN, "launch_group_norm", standin(lambda x, w, b, g, e, a="none", **_: GN.group_norm_plain(x, w, b, g, e, a)))]),
         ("K7", gn("k7"), gnp(GN.group_norm_tiled_plain), [t.clone() for t in gn_in],
